@@ -1,0 +1,545 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failed check raises and the script exits non-zero:
+
+1. print the card's name and power limit (``nvidia-smi``);
+2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all at once);
+3. hold the conv kernels against their plain PyTorch version at every
+   distinct conv (and fused conv+act+pool) shape of AlexNet, VGG16 and
+   MobileNetV2 at 224 px, batch 1, of AlexNet and MobileNetV2 at batch
+   4, and of two depthwise convs with a fused pool, fp32 (1e-4 of scale)
+   and bf16 (2e-2 of scale); outside VGG16 every fused conv equals the
+   unfused conv followed by its activation and pool, bitwise;
+4. hold the int8 codec against its plain version, bitwise, at every
+   boundary shape the main path's plans pick and a flat (4, 4096);
+5. the main path: ``repro_torch.launch.serve.serve_cnn`` for AlexNet and
+   MobileNetV2 at 224 px, batch 4 -- K=2 with the follow wire, K=3 with
+   M=4 and the int8 wire, and K=3 with M=4 under 30% drops -- with the
+   launch counts set to 0 just before and read just after; every kernel
+   must have launched.  Then split-vs-monolithic logits are checked
+   bitwise on the card, and each run is repeated on the CPU: logits
+   within 1e-3 of scale (follow wire) or the same top-1 (int8 wire);
+6. time every kernel against its plain version and the PyTorch library
+   call (``F.conv2d``; ``torch.mul`` for dequantize; none for quantize)
+   at the main path's shapes (CUDA graphs of back-to-back launches,
+   CUDA events, warm L2, in turns), and print one ``{"kernels": [...]}``
+   JSON line with each kernel's launches, error, times and bound.
+
+The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without ``src/repro_torch`` beside it, the script exits
+non-zero before printing any result.  Per-shape details go to
+``chiprun_out/chip_smoke.json``."""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): fp32 on the CUDA
+# cores, bf16 on the tensor cores, HBM3 bandwidth.
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
+FP32_TOL = 1e-4
+BF16_TOL = 2e-2
+LOGIT_TOL = 1e-3
+SOURCES = {
+    "conv2d_dense": ("src/repro_torch/csrc/conv2d.cu",
+                     "src/repro/kernels/conv2d.py:464"),
+    "conv2d_depthwise": ("src/repro_torch/csrc/conv2d.cu",
+                         "src/repro/kernels/conv2d.py:451"),
+    "quantize": ("src/repro_torch/csrc/quant.cu",
+                 "src/repro/kernels/quant.py:70"),
+    "dequantize": ("src/repro_torch/csrc/quant.cu",
+                   "src/repro/kernels/quant.py:79"),
+}
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max abs error, output scale = max(1, max |want|))."""
+    g, w = got.float(), want.float()
+    return (float((g - w).abs().max()),
+            max(1.0, float(w.abs().max())))
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: conv kernels vs plain
+# ---------------------------------------------------------------------------
+def conv_cases(cnn, models):
+    """Distinct conv calls of the fusion walk over each (model, batch),
+    plus the unfused ends a split can leave (conv alone, conv+act without
+    pool)."""
+    seen = {}
+    for name, batch in models:
+        layers = cnn.CNN_MODELS[name]
+        calls = cnn.conv_launches(layers, batch=batch)
+        for cut in range(1, len(layers)):
+            calls += cnn.conv_launches(layers, batch=batch, stop=cut)[-1:]
+        for c in calls:
+            key = (c["x_shape"], c["w_shape"], c["stride"], c["pad"],
+                   c["groups"], c["activation"], c["pool_k"], c["pool_s"])
+            seen.setdefault(key, dict(c, model=name))
+    return list(seen.values())
+
+
+# The depthwise kernel's fused pool, which no served model reaches (the
+# JAX kernel takes it, so the port does too): MobileNetV2-sized depthwise
+# convs with AlexNet's overlapping pool and a tiling one.
+DW_POOL_CASES = [
+    dict(layer=-1, x_shape=(4, 144, 56, 56), w_shape=(144, 1, 3, 3),
+         stride=1, pad=1, groups=144, activation="relu6", pool_k=3,
+         pool_s=2, model="depthwise+pool"),
+    dict(layer=-1, x_shape=(1, 96, 57, 57), w_shape=(96, 1, 3, 3),
+         stride=2, pad=1, groups=96, activation="relu", pool_k=2,
+         pool_s=2, model="depthwise+pool"),
+]
+
+
+def make_inputs(torch, call, dtype, gen, dev):
+    cout, cin_pg, k, _ = call["w_shape"]
+    x = torch.randn(call["x_shape"], generator=gen)
+    w = torch.randn(call["w_shape"], generator=gen) / (cin_pg * k * k) ** 0.5
+    b = 0.1 * torch.randn((cout,), generator=gen)
+    return x.to(dtype).to(dev), w.to(dtype).to(dev), b.to(dev)
+
+
+def conv_kwargs(call):
+    return dict(stride=call["stride"], pad=call["pad"],
+                groups=call["groups"], activation=call["activation"],
+                pool_k=call["pool_k"], pool_s=call["pool_s"])
+
+
+def phase_conv(torch, F, cnn, kconv, ref, dev):
+    gen = torch.Generator().manual_seed(1)
+    worst = {}
+    rows = []
+    n_fused = 0
+    # batch 1 (and the int8 runs' microbatches) and the follow-wire runs'
+    # batch 4, where the planner may pick another blocking
+    cases = conv_cases(cnn, [("alexnet", 1), ("vgg16", 1),
+                             ("mobilenetv2", 1), ("alexnet", 4),
+                             ("mobilenetv2", 4)])
+    for call in cases + DW_POOL_CASES:
+        for dname, dtype, tol in (("fp32", torch.float32, FP32_TOL),
+                                  ("bf16", torch.bfloat16, BF16_TOL)):
+            x, w, b = make_inputs(torch, call, dtype, gen, dev)
+            kw = conv_kwargs(call)
+            got = kconv.conv2d(x, w, bias=b, **kw)
+            want = ref.conv2d_plain(x, w, bias=b, **kw)
+            torch.cuda.synchronize()
+            err, scale = rel_err(got, want)
+            kind = "conv2d_depthwise" if call["groups"] > 1 \
+                and call["groups"] == call["x_shape"][1] else "conv2d_dense"
+            check(err <= tol * scale,
+                  f"{kind} {dname} {call}: max abs err {err} > "
+                  f"{tol} * {scale}")
+            worst[(kind, dname)] = max(worst.get((kind, dname), 0.0), err)
+            fused = call["activation"] is not None or call["pool_k"]
+            if fused and call["model"] != "vgg16":
+                plain = dict(kw, activation=None, pool_k=0, pool_s=0)
+                u = ref.activate(kconv.conv2d(x, w, bias=b, **plain),
+                                 call["activation"])
+                if call["pool_k"]:
+                    u = F.max_pool2d(u, call["pool_k"], call["pool_s"])
+                check(torch.equal(u, got),
+                      f"{kind} {dname} {call}: fused != unfused")
+                n_fused += 1
+            rows.append(dict(kernel=kind, dtype=dname, model=call["model"],
+                             x=list(call["x_shape"]), w=list(call["w_shape"]),
+                             stride=call["stride"], pad=call["pad"],
+                             act=call["activation"], pool=call["pool_k"],
+                             max_abs_err=err, scale=scale))
+    print(f"phase 3: {len(rows)} conv checks against the plain version "
+          f"passed; {n_fused} fused convs equal their unfused chain "
+          f"bitwise; worst abs err " + ", ".join(
+              f"{k}/{d}={v:.3g}" for (k, d), v in sorted(worst.items())))
+    return worst, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: codec vs plain
+# ---------------------------------------------------------------------------
+def boundary_shapes(cnn, core, profiles, batch=4, microbatches=4):
+    """Boundary shapes of the int8 plans the main path runs."""
+    shapes = set()
+    for name in ("alexnet", "mobilenetv2"):
+        prof = profiles.cnn_profile(name, batch=batch)
+        plan = core.smartsplit_chain(prof, core.paper_chain(3),
+                                     microbatches=microbatches, wire="int8")
+        outs = cnn.shapes_through(cnn.CNN_MODELS[name])
+        mb = -(-batch // microbatches)
+        for cut in plan.cuts:
+            shapes.add((mb,) + tuple(outs[cut - 1]))
+    return sorted(shapes)
+
+
+def phase_codec(torch, kquant, ref, shapes, dev):
+    """Returns the measured max |kernel - plain| of each codec and input
+    dtype: the int8 values' and the scales' for quantize, the decoded
+    values' for dequantize (0 when bitwise equal, which is checked)."""
+    gen = torch.Generator().manual_seed(2)
+    worst = {}
+    for shape in shapes:
+        for dname, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            x = (3 * torch.randn(shape, generator=gen)).to(dtype).to(dev)
+            x[:, :1] = 0          # an all-zero group: scale 1.0
+            axis = kquant.default_channel_axis(x.ndim)
+            q, s = kquant.quantize_boundary(x)
+            pq, ps = ref.quantize_plain(x, axis)
+            d = kquant.dequantize_boundary(q, s, out_dtype=dtype)
+            pd = ref.dequantize_plain(q, s, axis, dtype)
+            errs = {"quantize": max(rel_err(q, pq)[0], rel_err(s, ps)[0]),
+                    "dequantize": rel_err(d, pd)[0]}
+            for name, err in errs.items():
+                key = (name, dname)
+                worst[key] = max(worst.get(key, 0.0), err)
+            check(torch.equal(q, pq) and torch.equal(s, ps),
+                  f"quantize {tuple(shape)} {dtype} differs from plain")
+            check(torch.equal(d, pd),
+                  f"dequantize {tuple(shape)} {dtype} differs from plain")
+    torch.cuda.synchronize()
+    print(f"phase 4: codec bitwise equal to the plain version at "
+          f"{[tuple(s) for s in shapes]}, fp32 and bf16")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the main path
+# ---------------------------------------------------------------------------
+RUNS = [  # (label, argv after --cnn <model>)
+    ("K2-follow", ["--tiers", "2", "--microbatch", "1",
+                   "--wire-dtype", "follow", "--requests", "2"]),
+    ("K3-M4-int8", ["--tiers", "3", "--microbatch", "4",
+                    "--wire-dtype", "int8", "--requests", "2"]),
+    ("K3-M4-drop30", ["--tiers", "3", "--microbatch", "4",
+                      "--wire-dtype", "follow", "--drop", "0.3",
+                      "--requests", "3"]),
+]
+
+
+def chain_reference(torch, cnn, quant, layers, params, x, plan_cuts, wires,
+                    slices):
+    """The fault-free logits of a chain run: each microbatch walks the
+    stages, round-tripping the boundary through each hop's wire."""
+    outs = []
+    for a, b in slices:
+        h = x[a:b]
+        edges = [0, *plan_cuts, len(layers)]
+        for k in range(len(edges) - 1):
+            h = cnn.apply_cnn(layers, params, h, start=edges[k],
+                              stop=edges[k + 1])
+            if k < len(wires) and wires[k] != "fp32":
+                h = quant.boundary_roundtrip(h, wires[k])
+        outs.append(h)
+    return torch.cat(outs)
+
+
+def phase_main(torch, cnn, serve, launches, quant, runtime, dev):
+    params = {m: cnn.init_cnn(cnn.CNN_MODELS[m], device=dev)
+              for m in ("alexnet", "mobilenetv2")}
+    torch.cuda.synchronize()
+    results = []
+    launches.reset()
+    for model in ("alexnet", "mobilenetv2"):
+        for label, argv in RUNS:
+            args = serve.parse_args(["--cnn", model, "--batch", "4",
+                                     "--device", dev.type, *argv])
+            out = serve.serve_cnn(args, params=params[model])
+            results.append((model, label, argv, out))
+    counts = launches.snapshot()
+    print(f"phase 5: main path launches {json.dumps(counts)}")
+    for name, n in counts.items():
+        check(n > 0, f"{name} was never launched on the main path")
+
+    summary = []
+    cpu_params = {m: cnn.init_cnn(cnn.CNN_MODELS[m], device="cpu")
+                  for m in params}
+    for model, label, argv, out in results:
+        r, rt = out["result"], out["runtime"]
+        layers = cnn.CNN_MODELS[model]
+        slices = runtime.microbatch_slices(out["x"].shape[0],
+                                           rt.microbatches)
+        int8 = "int8" in argv
+        if int8:
+            check(not r.degraded, f"{model} {label}: clean run degraded")
+            want = chain_reference(torch, cnn, quant, layers, params[model],
+                                   out["x"], r.cuts, rt.wire_dtypes, slices)
+        else:
+            want = torch.cat([cnn.apply_cnn(layers, params[model],
+                                            out["x"][a:b])
+                              for a, b in slices])
+        check(torch.equal(r.logits, want),
+              f"{model} {label}: split logits != monolithic on the card")
+        args = serve.parse_args(["--cnn", model, "--batch", "4",
+                                 "--device", "cpu", *argv])
+        cpu = serve.serve_cnn(args, params=cpu_params[model], quiet=True)
+        c = cpu["result"]
+        check(c.cuts == r.cuts and c.attempts == r.attempts,
+              f"{model} {label}: CPU run took another path")
+        err, scale = rel_err(r.logits.cpu(), c.logits)
+        top1 = bool(torch.equal(r.logits.float().argmax(1).cpu(),
+                                c.logits.float().argmax(1)))
+        if int8:
+            check(top1, f"{model} {label}: top-1 differs from the CPU run")
+        else:
+            check(err <= LOGIT_TOL * scale,
+                  f"{model} {label}: logits differ from the CPU run by "
+                  f"{err} > {LOGIT_TOL} * {scale}")
+        s = rt.stats()
+        row = dict(model=model, run=label, cuts=list(r.cuts),
+                   requests=s["requests"], seconds=out["seconds"],
+                   ms_per_request=1e3 * out["seconds"] / s["requests"],
+                   attempts=[h["attempts"] for h in s["hops"]],
+                   dropped=[h["link"]["dropped"] for h in s["hops"]],
+                   merges=s["merges"], repicks=s["repicks"],
+                   cpu_max_abs_err=err, scale=scale, top1_equal=top1,
+                   split_equals_monolithic=True, launches=out["launches"])
+        summary.append(row)
+        print(f"  {model} {label}: cuts={row['cuts']} "
+              f"{row['ms_per_request']:.2f} ms/request (host clock) "
+              f"split==monolithic bitwise, vs CPU max abs err {err:.3g} "
+              f"(scale {scale:.3g}), top-1 equal {top1}")
+    return counts, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: timing
+# ---------------------------------------------------------------------------
+class Timer:
+    """Back-to-back launches of one call captured in a CUDA graph, timed
+    with CUDA events: device time per call, without the host's launch
+    overhead."""
+
+    def __init__(self, torch, fn, reps=20):
+        # warm up on a side stream (first-call set-up stays out of the
+        # capture), then capture ``reps`` launches
+        self.torch = torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            for _ in range(reps):
+                fn()
+        self.reps = reps
+        self.graph.replay()
+        torch.cuda.synchronize()
+
+    def ms(self) -> float:
+        t = self.torch
+        a = t.cuda.Event(enable_timing=True)
+        b = t.cuda.Event(enable_timing=True)
+        a.record()
+        self.graph.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / self.reps
+
+
+def in_turns(timers: dict, rounds=2) -> dict:
+    """Replay each timer in turns (a b c c b a ...) and average."""
+    names = list(timers)
+    total = dict.fromkeys(names, 0.0)
+    for r in range(rounds):
+        order = names if r % 2 == 0 else names[::-1]
+        for n in order:
+            total[n] += timers[n].ms()
+    return {n: total[n] / rounds for n in names}
+
+
+def conv_bound(call, dtype):
+    n, cin, h, w = call["x_shape"]
+    cout, cin_pg, k, _ = call["w_shape"]
+    ho = (h + 2 * call["pad"] - k) // call["stride"] + 1
+    wo = (w + 2 * call["pad"] - k) // call["stride"] + 1
+    po, pw = ho, wo
+    if call["pool_k"]:
+        po = (ho - call["pool_k"]) // call["pool_s"] + 1
+        pw = (wo - call["pool_k"]) // call["pool_s"] + 1
+    esize = 4 if dtype == "fp32" else 2
+    flops = 2.0 * n * cout * ho * wo * cin_pg * k * k
+    nbytes = esize * (n * cin * h * w + cout * cin_pg * k * k
+                      + n * cout * po * pw) + 4 * cout
+    return flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+
+
+def phase_time(torch, F, cnn, kconv, kquant, ref, shapes, dev):
+    gen = torch.Generator().manual_seed(3)
+    calls = []
+    for name in ("alexnet", "mobilenetv2"):
+        calls += [dict(c, model=name) for c in
+                  cnn.conv_launches(cnn.CNN_MODELS[name], batch=4)]
+    agg = {}
+    rows = []
+    for call in calls:
+        x, w, b = make_inputs(torch, call, torch.float32, gen, dev)
+        kw = conv_kwargs(call)
+        kind = "conv2d_depthwise" if call["groups"] > 1 \
+            and call["groups"] == call["x_shape"][1] else "conv2d_dense"
+        t = in_turns({
+            "ms": Timer(torch, lambda: kconv.conv2d(x, w, bias=b, **kw)),
+            "plain_ms": Timer(torch,
+                              lambda: ref.conv2d_plain(x, w, bias=b, **kw)),
+            "library_ms": Timer(torch, lambda: F.conv2d(
+                x, w, b, stride=call["stride"], padding=call["pad"],
+                groups=call["groups"]))})
+        t_f, t_b = conv_bound(call, "fp32")
+        row = dict(kernel=kind, model=call["model"], x=list(call["x_shape"]),
+                   w=list(call["w_shape"]), stride=call["stride"],
+                   pad=call["pad"], act=call["activation"],
+                   pool=call["pool_k"], flop_ms=1e3 * t_f,
+                   byte_ms=1e3 * t_b, **t)
+        rows.append(row)
+        a = agg.setdefault(kind, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                      flop_ms=0.0, byte_ms=0.0, bound_ms=0.0,
+                                      calls=0))
+        for key in ("ms", "plain_ms", "library_ms", "flop_ms", "byte_ms"):
+            a[key] += row[key]
+        a["bound_ms"] += 1e3 * max(t_f, t_b)
+        a["calls"] += 1
+    for shape in shapes:
+        x = (3 * torch.randn(shape, generator=gen)).to(dev)
+        axis = kquant.default_channel_axis(x.ndim)
+        q, s = kquant.quantize_boundary(x)
+        # dequantize's library call: one broadcast multiply; int8 * fp32
+        # promotes to fp32 and rounds the product once, as the kernel does
+        # (quantize has none: torch.quantize_per_channel takes the scales
+        # as given and multiplies by their reciprocal)
+        s_b = s.view([-1 if d == axis else 1 for d in range(x.ndim)])
+        check(torch.equal(torch.mul(q, s_b), kquant.dequantize_boundary(q, s)),
+              f"torch.mul dequantize {tuple(shape)} differs from the kernel")
+        t = in_turns({
+            "q_ms": Timer(torch, lambda: kquant.quantize_boundary(x)),
+            "q_plain_ms": Timer(torch, lambda: ref.quantize_plain(x, axis)),
+            "d_ms": Timer(torch, lambda: kquant.dequantize_boundary(q, s)),
+            "d_plain_ms": Timer(torch,
+                                lambda: ref.dequantize_plain(q, s, axis)),
+            "d_library_ms": Timer(torch, lambda: torch.mul(q, s_b))})
+        t["q_library_ms"] = None
+        n = x.numel()
+        groups = s.numel()
+        # quantize reads x, writes q and the scales; ~5 fp32 ops an
+        # element (abs, max, divide, round, clip); dequantize reads q
+        # and the scales, writes fp32, one multiply an element
+        for kind, key, nbytes, ops in (
+                ("quantize", "q", 4 * n + n + 4 * groups, 5 * n),
+                ("dequantize", "d", n + 4 * groups + 4 * n, n)):
+            t_f, t_b = ops / PEAK_FLOPS["fp32"], nbytes / PEAK_BYTES
+            lib = t[f"{key}_library_ms"]
+            a = agg.setdefault(kind, dict(
+                ms=0.0, plain_ms=0.0, library_ms=None if lib is None
+                else 0.0, flop_ms=0.0, byte_ms=0.0, bound_ms=0.0, calls=0))
+            a["ms"] += t[f"{key}_ms"]
+            a["plain_ms"] += t[f"{key}_plain_ms"]
+            if lib is not None:
+                a["library_ms"] += lib
+            a["flop_ms"] += 1e3 * t_f
+            a["byte_ms"] += 1e3 * t_b
+            a["bound_ms"] += 1e3 * max(t_f, t_b)
+            a["calls"] += 1
+            rows.append(dict(kernel=kind, shape=list(shape),
+                             ms=t[f"{key}_ms"],
+                             plain_ms=t[f"{key}_plain_ms"], library_ms=lib,
+                             flop_ms=1e3 * t_f, byte_ms=1e3 * t_b))
+    return agg, rows
+
+
+# ---------------------------------------------------------------------------
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False: this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}: run it "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    import torch.nn.functional as F
+
+    from repro_torch import core, runtime
+    from repro_torch.device import strict_fp32
+    from repro_torch.kernels import _build, launches
+    from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import quant as kquant
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import cnn, profiles
+
+    t_start = time.perf_counter()
+    strict_fp32()
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    regs = [ln.strip() for text in logs.values() for ln in text.splitlines()
+            if "registers" in ln or "spill" in ln]
+    print(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k}: {len(v)} B of log' for k, v in logs.items())})")
+
+    worst, conv_rows = phase_conv(torch, F, cnn, kconv, ref, dev)
+    shapes = boundary_shapes(cnn, core, profiles) + [(4, 4096)]
+    worst.update(phase_codec(torch, kquant, ref, shapes, dev))
+    counts, runs = phase_main(torch, cnn, serve, launches, kquant, runtime,
+                              dev)
+    agg, time_rows = phase_time(torch, F, cnn, kconv, kquant, ref,
+                                shapes[:-1], dev)
+
+    kernels = []
+    for name, (source, replaces) in SOURCES.items():
+        a = agg[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": worst[(name, "fp32")], "ms": a["ms"],
+            "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"],
+            "bound_by": "operations" if a["flop_ms"] >= a["byte_ms"]
+            else "bytes",
+            "library_ms": a["library_ms"],
+            "calls_timed": a["calls"],
+            "max_abs_err_bf16": worst[(name, "bf16")]})
+    detail = dict(card=card, torch=torch.__version__, conv_checks=conv_rows,
+                  runs=runs, timings=time_rows, kernels=kernels,
+                  ptxas=regs, seconds=time.perf_counter() - t_start)
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(detail, f, indent=1)
+    print(f"phase 6: timed {len(time_rows)} calls; total "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

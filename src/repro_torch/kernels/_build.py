@@ -1,0 +1,125 @@
+"""Build the CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
+
+Each source in ``repro_torch/csrc/`` compiles on its own into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds).  Libraries land in ``kernels/_build/`` (git-ignored) under a
+name keyed by the hash of the source and the flags, so an edited source
+rebuilds and an unchanged one loads as it is.  ``build_all`` starts one
+``nvcc`` per source at once; ``library(name)`` builds on first use.
+
+Nothing here runs at import: the CPU tests import every module."""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("conv2d", "quant")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME: the CUDA kernels "
+            "build only where the CUDA toolkit is installed")
+    return str(path)
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every source whose library is missing, all ``nvcc`` runs
+    at once.  Returns each build's compiler output (``-Xptxas -v``
+    register and shared-memory report); raises on a failed build."""
+    with _lock:
+        jobs = {n: _start(n) for n in names}
+        logs = {}
+        errors = []
+        for name, job in jobs.items():
+            if job is None:
+                logs[name] = "cached"
+                continue
+            proc, tmp, out = job
+            text, _ = proc.communicate()
+            logs[name] = text
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n{text}")
+                continue
+            os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return logs
+
+
+def library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed, with
+    ``signatures`` (``{function: (argtypes, restype)}``) declared on its
+    entry points when it is first loaded."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all((name,))
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(_target(name)))
+            lib.kernels_error_string.argtypes = [ctypes.c_int]
+            lib.kernels_error_string.restype = ctypes.c_char_p
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+        return _libs[name]
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise when a C entry point returned a non-zero ``cudaError_t``."""
+    if rc != 0:
+        msg = lib.kernels_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+VOIDP = ctypes.c_void_p
+INT = ctypes.c_int
+
+
+def ptr(t) -> VOIDP:
+    return VOIDP(t.data_ptr())
+
+
+def stream_of(t) -> VOIDP:
+    return VOIDP(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,81 @@
+"""The port stands alone: no file under ``src/repro_torch/`` and not
+``chip_smoke.py`` imports JAX or the ``repro`` package, and without a
+CUDA device its entry points raise unless the caller asks for the CPU."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "repro") or name.startswith("jax")
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_every_kernel_source_is_in_the_package():
+    csrc = REPO / "src" / "repro_torch" / "csrc"
+    from repro_torch.kernels import _build
+    assert sorted(p.stem for p in csrc.glob("*.cu")) == \
+        sorted(_build.SOURCES)
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def test_entry_points_raise_without_cuda():
+    _no_cuda()
+    from repro_torch.launch import serve
+    from repro_torch.models import cnn
+    layers = [cnn.conv(4, 3, 1, 1), cnn.relu()]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cnn.init_cnn(layers, (3, 8, 8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cnn.params_from_numpy([{}])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--cnn", "alexnet", "--requests", "1"])
+    assert cnn.init_cnn(layers, (3, 8, 8), device="cpu")[0]["w"].is_cpu
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """No card: the script exits non-zero and prints no result.  Alone in
+    a directory, without the package beside it: the same."""
+    _no_cuda()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            shutil.copy(REPO / "chip_smoke.py", script)
+        run = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert run.returncode != 0
+        assert '"ok"' not in run.stdout and '"kernels"' not in run.stdout
