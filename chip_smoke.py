@@ -19,15 +19,36 @@ Phases, in order; any failed check raises and the script exits non-zero:
 5. the main path: ``repro_torch.launch.serve.serve_cnn`` for AlexNet and
    MobileNetV2 at 224 px, batch 4 -- K=2 with the follow wire, K=3 with
    M=4 and the int8 wire, and K=3 with M=4 under 30% drops -- with the
-   launch counts set to 0 just before and read just after; every kernel
-   must have launched.  Then split-vs-monolithic logits are checked
-   bitwise on the card, and each run is repeated on the CPU: logits
-   within 1e-3 of scale (follow wire) or the same top-1 (int8 wire);
+   launch counts set to 0 just before and read just after; each of its
+   kernels (conv, codec) must have launched.  Then split-vs-monolithic
+   logits are checked bitwise on the card, and each run is repeated on
+   the CPU: logits within 1e-3 of scale (follow wire) or the same top-1
+   (int8 wire);
 6. time every kernel against its plain version and the PyTorch library
-   call (``F.conv2d``; ``torch.mul`` for dequantize; none for quantize)
-   at the main path's shapes (CUDA graphs of back-to-back launches,
-   CUDA events, warm L2, in turns), and print one ``{"kernels": [...]}``
-   JSON line with each kernel's launches, error, times and bound.
+   call (``F.conv2d``; ``torch.mul`` for dequantize; none for quantize;
+   ``F.scaled_dot_product_attention`` for flash attention, with an
+   explicit end-aligned mask where Sq < Sk; none for WKV and SSD) at the
+   main paths' shapes (CUDA graphs of
+   back-to-back launches, CUDA events, warm L2, in turns), and print one
+   ``{"kernels": [...]}`` JSON line with each kernel's launches, error,
+   times and bound.  It runs last, since it times phase 7's shapes too;
+7. the sequence kernels' path: ``repro_torch.kernels.ops`` at batch 2, in
+   fp32 and bf16, with the launch counts set to 0 just before and read
+   just after -- ``flash_attention_gqa`` (causal) at Qwen3-4B's widths (32
+   heads over 8 kv heads, hd 128) and Zamba2-7B's shared attention (32
+   heads, hd 112) with Sq = Sk = 2048, and at Qwen3-4B's with Sq 128
+   against Sk 2048; ``rwkv6_wkv`` at RWKV6-7B's (64 heads of 64) with T =
+   2000, so that the padding runs; ``mamba2_ssd`` at Zamba2-7B's (112
+   heads, hp 64, ds 64, B/C of 8 groups repeated to the heads) with T =
+   2048.  Every kernel must have launched; every output is finite and of
+   its shape;
+8. hold each sequence kernel against its plain version at every phase-7
+   call and at the small shapes of ``tests/test_kernels.py``'s sweeps, a
+   causal Sq > Sk case (rows with no visible key average V) and a
+   ragged-T case: fp32 to 1e-4 of scale (flash, WKV) and 2e-4 (SSD),
+   bf16 to 2e-2 (flash, WKV) and 5e-2 (SSD), where the scale is each
+   output row's own (its largest |value| over the last dim, at least the
+   RMS of the whole output).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without ``src/repro_torch`` beside it, the script exits
@@ -60,7 +81,18 @@ SOURCES = {
                  "src/repro/kernels/quant.py:70"),
     "dequantize": ("src/repro_torch/csrc/quant.cu",
                    "src/repro/kernels/quant.py:79"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:23"),
+    "rwkv6_wkv": ("src/repro_torch/csrc/rwkv6_wkv.cu",
+                  "src/repro/kernels/rwkv6_wkv.py:21"),
+    "mamba2_ssd": ("src/repro_torch/csrc/mamba2_ssd.cu",
+                   "src/repro/kernels/mamba2_ssd.py:24"),
 }
+CNN_KERNELS = ("conv2d_dense", "conv2d_depthwise", "quantize", "dequantize")
+MIXERS = ("flash_attention", "rwkv6_wkv", "mamba2_ssd")
+MIXER_TOL = {("flash_attention", "fp32"): 1e-4, ("rwkv6_wkv", "fp32"): 1e-4,
+             ("mamba2_ssd", "fp32"): 2e-4, ("flash_attention", "bf16"): 2e-2,
+             ("rwkv6_wkv", "bf16"): 2e-2, ("mamba2_ssd", "bf16"): 5e-2}
 
 
 def check(cond: bool, what: str) -> None:
@@ -73,6 +105,18 @@ def rel_err(got, want) -> tuple[float, float]:
     g, w = got.float(), want.float()
     return (float((g - w).abs().max()),
             max(1.0, float(w.abs().max())))
+
+
+def row_err(got, want) -> tuple[float, float]:
+    """(max abs error, max of each row's error over its row's scale).  A
+    row is one output vector (the last dim); its scale is its largest
+    |want|, at least the RMS of all of ``want``, so a row of small values
+    is held to its own size and not to the largest row's."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    floor = max(float(w.square().mean().sqrt()), 1e-30)
+    scale = w.abs().amax(dim=-1, keepdim=True).clamp(min=floor)
+    return float(err.max()), float((err / scale).max())
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +304,7 @@ def phase_main(torch, cnn, serve, launches, quant, runtime, dev):
                                      "--device", dev.type, *argv])
             out = serve.serve_cnn(args, params=params[model])
             results.append((model, label, argv, out))
-    counts = launches.snapshot()
+    counts = {n: launches.snapshot()[n] for n in CNN_KERNELS}
     print(f"phase 5: main path launches {json.dumps(counts)}")
     for name, n in counts.items():
         check(n > 0, f"{name} was never launched on the main path")
@@ -462,6 +506,279 @@ def phase_time(torch, F, cnn, kconv, kquant, ref, shapes, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the sequence kernels' path
+# ---------------------------------------------------------------------------
+def mixer_cases(configs, rwkv_hd):
+    """The phase-7 calls, at the full widths of the three configs whose
+    mixers the kernels compute; batch 2, 2048 tokens."""
+    qwen, rwkv, zamba = (configs.get_config(n)
+                         for n in ("qwen3-4b", "rwkv6-7b", "zamba2-7b"))
+    inner = zamba.ssm_expand * zamba.d_model
+    nh = zamba.n_mamba_heads
+    attn = dict(kernel="flash_attention", B=2, causal=True)
+    return [
+        dict(attn, label="qwen3-4b", Sq=2048, Sk=2048, H=qwen.num_heads,
+             KV=qwen.num_kv_heads, hd=qwen.hd),
+        dict(attn, label="zamba2-7b shared attention", Sq=2048, Sk=2048,
+             H=zamba.num_heads, KV=zamba.num_kv_heads, hd=zamba.hd),
+        dict(attn, label="qwen3-4b Sq=128", Sq=128, Sk=2048,
+             H=qwen.num_heads, KV=qwen.num_kv_heads, hd=qwen.hd),
+        dict(kernel="rwkv6_wkv", label="rwkv6-7b", B=2, T=2000,
+             H=rwkv.d_model // rwkv_hd, hd=rwkv_hd, block_t=64),
+        dict(kernel="mamba2_ssd", label="zamba2-7b", B=2, T=2048, H=nh,
+             hp=inner // nh, ds=zamba.ssm_state, G=zamba.ssm_groups,
+             chunk=64),
+    ]
+
+
+# The small shapes of tests/test_kernels.py's sweeps (flash L27-38, WKV
+# L144-148, SSD L184-188), GQA, a causal Sq > Sk case and ragged T.
+SMALL_MIXERS = [
+    *(dict(kernel="flash_attention", label="sweep", B=1, Sq=sq, Sk=sk, H=bh,
+           KV=bh, hd=hd, causal=causal, block_q=bq, block_k=bk)
+      for bh, sq, sk, hd, causal, bq, bk in (
+          (2, 128, 128, 64, True, 64, 64), (1, 128, 128, 128, True, 128, 128),
+          (2, 128, 256, 64, False, 64, 64), (1, 64, 256, 32, True, 64, 128),
+          (2, 128, 128, 80, True, 64, 64), (1, 256, 256, 128, True, 128, 128),
+          (1, 64, 384, 32, True, 64, 128), (3, 192, 192, 80, True, 64, 64))),
+    dict(kernel="flash_attention", label="gqa4", B=2, Sq=128, Sk=128, H=8,
+         KV=2, hd=64, causal=True, block_q=64, block_k=64),
+    dict(kernel="flash_attention", label="sq>sk causal", B=1, Sq=192, Sk=64,
+         H=4, KV=2, hd=96, causal=True, block_q=64, block_k=64),
+    *(dict(kernel="rwkv6_wkv", label="sweep", B=b, T=t, H=h, hd=hd,
+           block_t=bt)
+      for b, t, h, hd, bt in ((2, 128, 2, 32, 32), (1, 96, 4, 64, 32),
+                              (3, 64, 1, 16, 64))),
+    dict(kernel="rwkv6_wkv", label="ragged T", B=1, T=50, H=2, hd=16,
+         block_t=32),
+    *(dict(kernel="mamba2_ssd", label="sweep", B=b, T=t, H=h, hp=hp, ds=ds,
+           G=h, chunk=chunk)
+      for b, t, h, hp, ds, chunk in ((2, 128, 2, 16, 8, 32),
+                                     (1, 64, 4, 32, 16, 64),
+                                     (2, 96, 1, 64, 64, 32))),
+    dict(kernel="mamba2_ssd", label="ragged T", B=2, T=50, H=2, hp=16, ds=8,
+         G=2, chunk=32),
+]
+
+
+def mixer_inputs(torch, case, dtype, gen, dev):
+    """Seeded inputs on the card, made in fp32 and stored in ``dtype``."""
+    F = torch.nn.functional
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    B = case["B"]
+    if case["kernel"] == "flash_attention":
+        q = randn(B, case["Sq"], case["H"], case["hd"])
+        k, v = (randn(B, case["Sk"], case["KV"], case["hd"])
+                for _ in range(2))
+        return tuple(t.to(dtype) for t in (q, k, v))
+    if case["kernel"] == "rwkv6_wkv":
+        shape = (B, case["T"], case["H"], case["hd"])
+        r, k, v = (randn(*shape, scale=0.3) for _ in range(3))
+        w = torch.sigmoid(randn(*shape)) * 0.5 + 0.45
+        u = randn(case["H"], case["hd"], scale=0.1)
+        return tuple(t.to(dtype) for t in (r, k, v, w, u))
+    T, H = case["T"], case["H"]
+    x = randn(B, T, H, case["hp"], scale=0.5)
+    dt = F.softplus(randn(B, T, H))
+    A = -torch.exp(randn(H, scale=0.3))
+    # B and C per group, repeated to the heads as the model's layer does
+    Bm, Cm = (randn(B, T, case["G"], case["ds"], scale=0.4)
+              .repeat_interleave(H // case["G"], dim=2) for _ in range(2))
+    return x.to(dtype), dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype)
+
+
+def call_mixer(kops, case, args):
+    if case["kernel"] == "flash_attention":
+        return kops.flash_attention_gqa(
+            *args, causal=case["causal"], block_q=case.get("block_q", 128),
+            block_k=case.get("block_k", 128))
+    if case["kernel"] == "rwkv6_wkv":
+        return kops.rwkv6_wkv(*args, block_t=case["block_t"])
+    return kops.mamba2_ssd(*args, chunk=case["chunk"])
+
+
+def plain_mixer(ref, case, args):
+    if case["kernel"] == "flash_attention":
+        return ref.attention_plain(*args, causal=case["causal"])
+    if case["kernel"] == "rwkv6_wkv":
+        return ref.rwkv6_wkv_plain(*args)
+    return ref.mamba2_ssd_plain(*args, chunk=case["chunk"])
+
+
+def mixer_out_shape(case):
+    if case["kernel"] == "flash_attention":
+        return (case["B"], case["Sq"], case["H"], case["hd"])
+    if case["kernel"] == "rwkv6_wkv":
+        return (case["B"], case["T"], case["H"], case["hd"])
+    return (case["B"], case["T"], case["H"], case["hp"])
+
+
+DTYPES = (("fp32", "float32"), ("bf16", "bfloat16"))
+
+
+def phase_mixers(torch, kops, launches, cases, dev):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    inputs = {(i, d): mixer_inputs(torch, case, getattr(torch, tname), gen,
+                                   dev)
+              for i, case in enumerate(cases) for d, tname in DTYPES}
+    torch.cuda.synchronize()
+    launches.reset()
+    t0 = time.perf_counter()
+    outs = {key: call_mixer(kops, cases[key[0]], args)
+            for key, args in inputs.items()}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launches.snapshot()
+    print(f"phase 7: sequence kernels' path launches "
+          f"{json.dumps({n: counts[n] for n in MIXERS})} "
+          f"({seconds:.2f} s host clock, first calls included)")
+    for name in MIXERS:
+        check(counts[name] > 0, f"{name} was never launched on its path")
+    for (i, d), y in outs.items():
+        case = cases[i]
+        check(tuple(y.shape) == mixer_out_shape(case)
+              and y.dtype == inputs[(i, d)][0].dtype,
+              f"{case['label']} {d}: output {tuple(y.shape)} {y.dtype}")
+        check(bool(torch.isfinite(y).all()),
+              f"{case['label']} {d}: non-finite output")
+    return inputs, outs, counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: sequence kernels vs plain
+# ---------------------------------------------------------------------------
+def phase_mixer_checks(torch, kops, ref, cases, inputs, outs, dev):
+    worst, worst_rel = {}, {}
+    rows = []
+
+    def hold(case, d, got, args):
+        want = plain_mixer(ref, case, args)
+        torch.cuda.synchronize()
+        err, rel = row_err(got, want)
+        tol = MIXER_TOL[(case["kernel"], d)]
+        check(rel <= tol,
+              f"{case['kernel']} {case['label']} {d} {mixer_out_shape(case)}"
+              f": error {rel} of its row's scale > {tol} (max abs {err})")
+        key = (case["kernel"], d)
+        worst[key] = max(worst.get(key, 0.0), err)
+        worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
+        rows.append(dict(case, dtype=d, max_abs_err=err, max_row_rel_err=rel))
+
+    for (i, d), args in inputs.items():
+        hold(cases[i], d, outs[(i, d)], args)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for case in SMALL_MIXERS:
+        for d, tname in DTYPES:
+            args = mixer_inputs(torch, case, getattr(torch, tname), gen, dev)
+            hold(case, d, call_mixer(kops, case, args), args)
+    # the Sq > Sk rows with no visible key: the mean of V, from the kernel
+    case = next(c for c in SMALL_MIXERS if c["label"] == "sq>sk causal")
+    q, k, v = mixer_inputs(torch, case, torch.float32, gen, dev)
+    y = call_mixer(kops, case, (q, k, v))
+    blind = case["Sq"] - case["Sk"]
+    mean_v = v.mean(dim=1).repeat_interleave(case["H"] // case["KV"], dim=1)
+    err = float((y[:, :blind] - mean_v[:, None]).abs().max())
+    check(err <= FP32_TOL, f"flash rows with no visible key: {err} from "
+          f"mean(V)")
+    print(f"phase 8: {len(rows)} sequence-kernel checks against the plain "
+          f"version passed; rows with no visible key = mean(V) to {err:.3g}; "
+          f"worst abs err " + ", ".join(
+              f"{k}/{d}={v:.3g}" for (k, d), v in sorted(worst.items()))
+          + "; worst err over its row's scale " + ", ".join(
+              f"{k}/{d}={v:.3g}" for (k, d), v in sorted(worst_rel.items())))
+    return worst, rows
+
+
+def mixer_bound(case, dname):
+    """(FLOP time, byte time) in seconds of one call: each input read once
+    and each output written once; FLOPs of the work this call's data needs
+    (visible query-key pairs; the causal half of each SSD chunk)."""
+    e = 4 if dname == "fp32" else 2
+    B = case["B"]
+    if case["kernel"] == "flash_attention":
+        Sq, Sk, H, KV, hd = (case[n] for n in ("Sq", "Sk", "H", "KV", "hd"))
+        if case["causal"]:
+            # a row with no visible key still averages every key
+            pairs = sum(min(Sk, r + Sk - Sq + 1) if r + Sk - Sq >= 0 else Sk
+                        for r in range(Sq))
+        else:
+            pairs = Sq * Sk
+        flops = 4.0 * hd * pairs * B * H
+        nbytes = e * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
+    elif case["kernel"] == "rwkv6_wkv":
+        T, H, hd = case["T"], case["H"], case["hd"]
+        # k v^T (hd^2), S w + k v^T and r^T S (2 hd^2 each as FMAs); the
+        # bonus term factors as v_j * sum_i r_i u_i k_i: 5 hd more
+        flops = (5.0 * hd * hd + 5.0 * hd) * B * T * H
+        nbytes = e * 5 * B * T * H * hd + e * H * hd
+    else:
+        T, H, hp, ds, L = (case[n] for n in ("T", "H", "hp", "ds", "chunk"))
+        n = -(-T // L)
+        pairs = L * (L + 1) // 2
+        flops = B * H * n * (2.0 * pairs * (ds + hp) + 4.0 * L * hp * ds)
+        nbytes = e * B * T * H * (2 * hp + 2 * ds + 1) + 4 * H
+    return flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+
+
+def phase_time_mixers(torch, F, kops, ref, cases, inputs):
+    """Kernel, plain and library times of every phase-7 call, fp32 and
+    bf16; the aggregate (fp32) feeds the kernels line."""
+    agg, rows = {}, []
+    plain_reps = {"flash_attention": 3, "rwkv6_wkv": 1, "mamba2_ssd": 3}
+    for (i, d), args in inputs.items():
+        case = cases[i]
+        name = case["kernel"]
+        timers = {
+            "ms": Timer(torch, lambda: call_mixer(kops, case, args), reps=5),
+            "plain_ms": Timer(torch, lambda: plain_mixer(ref, case, args),
+                              reps=plain_reps[name])}
+        lib_err = None
+        if name == "flash_attention" and d == "fp32":
+            qh, kh, vh = (t.transpose(1, 2) for t in args)
+            Sq, Sk = case["Sq"], case["Sk"]
+            mask = None
+            if Sq != Sk:
+                # SDPA's is_causal is top-left aligned: give the end-aligned
+                # mask (every row here sees a key, so no row is all masked)
+                qpos = torch.arange(Sq, device=qh.device)[:, None]
+                kpos = torch.arange(Sk, device=qh.device)[None, :]
+                mask = kpos <= qpos + (Sk - Sq)
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True)
+            lib_err, rel = row_err(lib().transpose(1, 2),
+                                   call_mixer(kops, case, args))
+            check(rel <= 1e-3,
+                  f"SDPA {case['label']} differs from the kernel by "
+                  f"{rel} of its row's scale (max abs {lib_err})")
+            timers["library_ms"] = Timer(torch, lib, reps=5)
+        t = in_turns(timers)
+        t.setdefault("library_ms", None)
+        t_f, t_b = mixer_bound(case, d)
+        row = dict(case, dtype=d, flop_ms=1e3 * t_f, byte_ms=1e3 * t_b,
+                   bound_ms=1e3 * max(t_f, t_b), library_max_abs_err=lib_err,
+                   **t)
+        rows.append(row)
+        if d != "fp32":
+            continue
+        a = agg.setdefault(name, dict(
+            ms=0.0, plain_ms=0.0, flop_ms=0.0, byte_ms=0.0, bound_ms=0.0,
+            calls=0, library_ms=None if t["library_ms"] is None else 0.0))
+        for key in ("ms", "plain_ms", "flop_ms", "byte_ms", "bound_ms"):
+            a[key] += row[key]
+        a["calls"] += 1
+        if a["library_ms"] is not None:
+            # every call of a kernel with a library call has it timed
+            a["library_ms"] += t["library_ms"]
+    return agg, rows
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import torch
 
@@ -476,12 +793,14 @@ def main() -> int:
     sys.path.insert(0, SRC)
     import torch.nn.functional as F
 
-    from repro_torch import core, runtime
+    from repro_torch import configs, core, runtime
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import _build, launches
     from repro_torch.kernels import conv2d as kconv
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import quant as kquant
     from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_wkv import RWKV_HD
     from repro_torch.launch import serve
     from repro_torch.models import cnn, profiles
 
@@ -508,8 +827,24 @@ def main() -> int:
     worst.update(phase_codec(torch, kquant, ref, shapes, dev))
     counts, runs = phase_main(torch, cnn, serve, launches, kquant, runtime,
                               dev)
+    cases = mixer_cases(configs, RWKV_HD)
+    t0 = time.perf_counter()
+    inputs, outs, mixer_counts = phase_mixers(torch, kops, launches, cases,
+                                              dev)
+    counts.update({n: mixer_counts[n] for n in MIXERS})
+    mixer_worst, mixer_rows = phase_mixer_checks(torch, kops, ref, cases,
+                                                 inputs, outs, dev)
+    worst.update(mixer_worst)
+    print(f"phases 7-8: {time.perf_counter() - t0:.1f} s")
     agg, time_rows = phase_time(torch, F, cnn, kconv, kquant, ref,
                                 shapes[:-1], dev)
+    t0 = time.perf_counter()
+    mixer_agg, mixer_time_rows = phase_time_mixers(torch, F, kops, ref,
+                                                   cases, inputs)
+    agg.update(mixer_agg)
+    time_rows += mixer_time_rows
+    print(f"phase 6: sequence kernels timed in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -526,8 +861,9 @@ def main() -> int:
             "calls_timed": a["calls"],
             "max_abs_err_bf16": worst[(name, "bf16")]})
     detail = dict(card=card, torch=torch.__version__, conv_checks=conv_rows,
-                  runs=runs, timings=time_rows, kernels=kernels,
-                  ptxas=regs, seconds=time.perf_counter() - t_start)
+                  mixer_checks=mixer_rows, runs=runs, timings=time_rows,
+                  kernels=kernels, ptxas=regs,
+                  seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("conv2d", "quant")
+SOURCES = ("conv2d", "quant", "flash_attention", "rwkv6_wkv", "mamba2_ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -115,6 +115,25 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 VOIDP = ctypes.c_void_p
 INT = ctypes.c_int
+# the storage dtypes every kernel takes, as the C entry points' dtype code
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_inputs(name: str, tensors: dict, dtypes=tuple(DTYPE_CODE)) -> None:
+    """One dtype among ``dtypes``, one device, contiguous: what the
+    sequence kernels read."""
+    first = next(iter(tensors.values()))
+    for n, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {n} must be a tensor")
+        if t.dtype not in dtypes or t.dtype != first.dtype:
+            raise TypeError(f"{name}: {n} is {t.dtype}; the inputs must "
+                            f"share one dtype of {dtypes}")
+        if t.device != first.device:
+            raise ValueError(f"{name}: {n} on {t.device}, others on "
+                             f"{first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {n} must be contiguous")
 
 
 def ptr(t) -> VOIDP:

@@ -48,7 +48,6 @@ _ACT_CODE = {None: 0, "relu": 1, "relu6": 2}
 _SIGNATURES = {"conv2d_launch": (
     [_build.VOIDP] * 4 + [ctypes.POINTER(ctypes.c_int), _build.VOIDP],
     ctypes.c_int)}
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # order of the int array conv2d_launch reads (enum Param in conv2d.cu)
 _PARAM_FIELDS = (
     "N", "Cin", "H", "W", "Cout", "cin_pg", "cout_pg", "K", "stride", "pad",
@@ -176,7 +175,7 @@ def plan_conv(x_shape, w_shape, *, stride: int = 1, pad: int = 0,
                   cout_pg=Cout // groups, K=K, stride=stride, pad=pad,
                   act=_ACT_CODE[activation], pool_k=pool_k, pool_s=pool_s,
                   Ho=Ho, Wo=Wo, Po=Po, Pw=Pw, groups=groups,
-                  dtype=_DTYPE_CODE[dtype])
+                  dtype=_build.DTYPE_CODE[dtype])
     if depthwise:
         if K > DW_MAX_K:
             raise ValueError(f"depthwise kernel takes K <= {DW_MAX_K}, "
@@ -246,7 +245,7 @@ def _check_inputs(x, w, bias) -> None:
     for name, t in (("x", x), ("w", w)):
         if not isinstance(t, torch.Tensor) or t.ndim != 4:
             raise ValueError(f"conv2d: {name} must be a 4-D tensor")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"conv2d: x must be float32 or bfloat16, "
                         f"got {x.dtype}")
     if w.dtype != x.dtype:

@@ -1,0 +1,163 @@
+"""Flash attention: the CUDA kernel's wrapper and its launch geometry.
+
+``flash_attention`` is the counterpart of the JAX package's Pallas flash
+kernel behind ``repro.kernels.ops.flash_attention_gqa``: q (B, Sq, H, hd)
+and k, v (B, Sk, KV, hd) in fp32 or bf16, online softmax in fp32, causal
+masking end-aligned with a finite mask value, output in q's dtype.  On a
+CUDA tensor it launches ``csrc/flash_attention.cu``, which reads K/V head
+``h // (H // KV)`` for query head h (no repeat is materialised).  On a CPU
+tensor it runs ``ref.attention_plain``.  There is no fallback between the
+two: a CUDA tensor the kernel does not take raises.
+
+``plan_flash`` is the launch geometry in plain Python -- query tiles, key
+tiles, how many key tiles each query tile walks, shared memory -- and the
+only copy of it: the wrapper passes its grid, its shared-memory size and
+its per-tile key-tile counts (a small int32 table on the card) into the
+launch, so the CPU tests walk the tiles the kernel walks.  The tile
+constants below are compiled into the kernel too; the wrapper checks that
+they agree when it first loads the library."""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, launches
+from repro_torch.kernels.ref import attention_plain, attention_scale
+
+BQ = 64                       # query rows per CTA
+BK = 64                       # keys per staged tile
+LDT = BQ + 4                  # Q^T / K^T row stride (floats)
+LDS = BQ + 8                  # S^T row stride
+THREADS = 256
+HD_STEP = 16                  # hd is a multiple of 16 (16 column lanes)
+MAX_HD = 128
+SMEM_MAX = 227 * 1024
+GRID_Y_MAX = 65535
+
+_V, _I = _build.VOIDP, _build.INT
+_SIGNATURES = {
+    "flash_attention_launch": (
+        [_V] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_V, _V],
+        ctypes.c_int),
+    "flash_attention_tiles": ([ctypes.POINTER(ctypes.c_int)], None)}
+_tiles_checked = False
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashGeometry:
+    """One launch: grid (q_tiles, B*H) of 256-thread CTAs."""
+
+    B: int
+    Sq: int
+    Sk: int
+    H: int
+    KV: int
+    hd: int
+    causal: bool
+
+    @property
+    def q_tiles(self) -> int:
+        return -(-self.Sq // BQ)
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.q_tiles, self.B * self.H
+
+    @property
+    def smem(self) -> int:
+        return 4 * (2 * self.hd * LDT + BK * LDS + 3 * BQ)
+
+    def kv_head(self, h: int) -> int:
+        return h // (self.H // self.KV)
+
+    @property
+    def k_tiles(self) -> tuple[int, ...]:
+        """Key tiles each query tile walks, the table the kernel reads.  A
+        causal tile whose every row sees key 0 stops after its last visible
+        key; a tile holding a row with no visible key (Sq > Sk) walks them
+        all, since that row averages every key."""
+        n, diag = -(-self.Sk // BK), self.Sk - self.Sq
+        tiles = []
+        for q0 in range(0, self.Sq, BQ):
+            last = min(q0 + BQ, self.Sq) - 1 + diag
+            causal_stop = self.causal and q0 + diag >= 0
+            tiles.append(min(n, last // BK + 1) if causal_stop else n)
+        return tuple(tiles)
+
+
+def plan_flash(q_shape, k_shape, *, causal: bool = True) -> FlashGeometry:
+    """The launch geometry of one call; raises on shapes the kernel does
+    not take."""
+    B, Sq, H, hd = (int(d) for d in q_shape)
+    Bk, Sk, KV, hdk = (int(d) for d in k_shape)
+    if Bk != B or hdk != hd:
+        raise ValueError(f"flash_attention: q {tuple(q_shape)} and k "
+                         f"{tuple(k_shape)} differ in batch or head dim")
+    if min(B, Sq, Sk, H, KV) < 1:
+        raise ValueError("flash_attention: empty input")
+    if H % KV:
+        raise ValueError(f"flash_attention: {H} query heads are not a "
+                         f"multiple of {KV} kv heads")
+    if hd % HD_STEP or not HD_STEP <= hd <= MAX_HD:
+        raise ValueError(f"flash_attention: head dim {hd} is not a multiple "
+                         f"of {HD_STEP} up to {MAX_HD}")
+    if B * H > GRID_Y_MAX:
+        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the grid "
+                         f"limit {GRID_Y_MAX}")
+    return FlashGeometry(B, Sq, Sk, H, KV, hd, bool(causal))
+
+
+@functools.lru_cache(maxsize=256)
+def _k_tile_table(g: FlashGeometry, device: torch.device) -> torch.Tensor:
+    """``g.k_tiles`` on the card, made once per geometry (before any CUDA
+    graph captures a launch that reads it)."""
+    return torch.tensor(g.k_tiles, dtype=torch.int32, device=device)
+
+
+def _library():
+    """The kernel library, its compiled tile constants checked against the
+    planner's on first load."""
+    global _tiles_checked
+    lib = _build.library("flash_attention", _SIGNATURES)
+    if not _tiles_checked:
+        got = (ctypes.c_int * 5)()
+        lib.flash_attention_tiles(got)
+        if tuple(got) != (BQ, BK, LDT, LDS, THREADS):
+            raise RuntimeError(
+                f"flash_attention: the kernel is compiled with (BQ, BK, LDT, "
+                f"LDS, THREADS) = {tuple(got)}, the planner has "
+                f"{(BQ, BK, LDT, LDS, THREADS)}")
+        _tiles_checked = True
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd)."""
+    _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v})
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.ndim != 4:
+            raise ValueError(f"flash_attention: {n} must be 4-D")
+    if v.shape != k.shape:
+        raise ValueError(f"flash_attention: v {tuple(v.shape)} != k "
+                         f"{tuple(k.shape)}")
+    g = plan_flash(q.shape, k.shape, causal=causal)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    o = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        k_tiles = _k_tile_table(g, q.device)
+        rc = lib.flash_attention_launch(
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o), g.Sq,
+            g.Sk, g.H, g.KV, g.hd, attention_scale(g.hd), int(g.causal),
+            _build.DTYPE_CODE[q.dtype], *g.grid, g.smem, _build.ptr(k_tiles),
+            _build.stream_of(q))
+    _build.check(lib, rc, "flash_attention")
+    launches.add("flash_attention")
+    return o

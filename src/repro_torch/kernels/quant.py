@@ -27,7 +27,6 @@ from repro_torch.core.dtype_policy import policy_torch_dtype
 from repro_torch.kernels import _build, launches
 from repro_torch.kernels.ref import dequantize_plain, quantize_plain
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _V, _I, _LL = _build.VOIDP, _build.INT, ctypes.c_longlong
 _SIGNATURES = {
     "quantize_launch": ([_V, _V, _V, _I, _I, _LL, _I, _V], ctypes.c_int),
@@ -65,7 +64,7 @@ def quantize_boundary(x: torch.Tensor, axis: int | None = None):
 
     ``axis`` defaults to the channel convention for ``x.ndim``.  Returns
     ``(values int8 like x, scales fp32 (C,))``."""
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"quantize_boundary: x must be float32 or "
                         f"bfloat16, got {x.dtype}")
     if x.numel() == 0:
@@ -83,7 +82,7 @@ def quantize_boundary(x: torch.Tensor, axis: int | None = None):
     with torch.cuda.device(x.device):
         rc = lib.quantize_launch(
             _build.ptr(x), _build.ptr(q), _build.ptr(scales), B, C, S,
-            _DTYPE_CODE[x.dtype], _build.stream_of(x))
+            _build.DTYPE_CODE[x.dtype], _build.stream_of(x))
     _build.check(lib, rc, "quantize_boundary")
     launches.add("quantize")
     return q, scales
@@ -101,7 +100,7 @@ def dequantize_boundary(values: torch.Tensor, scales: torch.Tensor,
     if scales.dtype != torch.float32 or scales.device != values.device:
         raise TypeError("dequantize_boundary: scales must be float32 on "
                         "the values' device")
-    if out_dtype not in _DTYPE_CODE:
+    if out_dtype not in _build.DTYPE_CODE:
         raise TypeError(f"dequantize_boundary: out_dtype must be float32 "
                         f"or bfloat16, got {out_dtype}")
     if axis is None:
@@ -123,7 +122,7 @@ def dequantize_boundary(values: torch.Tensor, scales: torch.Tensor,
     with torch.cuda.device(values.device):
         rc = lib.dequantize_launch(
             _build.ptr(values), _build.ptr(scales), _build.ptr(out), C, S,
-            total, _DTYPE_CODE[out_dtype], _build.stream_of(values))
+            total, _build.DTYPE_CODE[out_dtype], _build.stream_of(values))
     _build.check(lib, rc, "dequantize_boundary")
     launches.add("dequantize")
     return out

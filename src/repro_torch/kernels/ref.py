@@ -9,7 +9,13 @@ TF32 inside cuDNN.
 The codec versions are bitwise equal to ``quantize_jnp`` /
 ``dequantize_jnp`` of the JAX package: the absmax, a true division by
 127 (a tensor divisor, never a Python scalar: PyTorch's CUDA division by
-a host scalar multiplies by its reciprocal), round-half-even, clip."""
+a host scalar multiplies by its reciprocal), round-half-even, clip.
+
+The sequence mixers (``attention_plain``, ``rwkv6_wkv_plain``,
+``mamba2_ssd_plain``) compute what the JAX package's Pallas kernels
+compute, in fp32: the attention's finite mask value and the SSD's chunked
+arithmetic included, so they agree with ``repro.kernels.ref`` wherever
+that oracle is defined and with the Pallas kernels everywhere."""
 from __future__ import annotations
 
 import torch
@@ -80,3 +86,102 @@ def dequantize_plain(values, scales, axis: int | None = None,
         shape[axis] = values.shape[axis]
         sb = scales.reshape(shape)
     return (values.float() * sb).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sequence mixers: attention, RWKV6 WKV, Mamba2 SSD
+# ---------------------------------------------------------------------------
+# The TPU flash kernel's mask value: finite, so a query row that sees no key
+# averages V (every key gets exp(0) = 1), where a -inf fill would give NaN.
+MASK_VALUE = -1e30
+
+
+def attention_scale(hd: int) -> float:
+    """The softmax scale, ``1 / sqrt(hd)``, as the JAX kernel writes it; it
+    is rounded once, to fp32, where it meets the fp32 scores."""
+    return 1.0 / hd**0.5
+
+
+def attention_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Dense softmax attention in fp32, output in q's dtype.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), H % KV == 0 (query head h
+    reads K/V head h // (H // KV)).  Causal masking is end-aligned (query
+    i sees keys <= i + Sk - Sq) with the finite ``MASK_VALUE`` fill, so a
+    query row with no visible key comes out as the mean of V."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    qf = q.float().transpose(1, 2)                          # (B, H, Sq, hd)
+    kf = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * attention_scale(hd)
+    if causal:
+        rows = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        cols = torch.arange(Sk, device=q.device)[None, :]
+        s = s.masked_fill(cols > rows, MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, vf).transpose(1, 2).to(q.dtype)
+
+
+def rwkv6_wkv_plain(r, k, v, w, u) -> torch.Tensor:
+    """Token-level RWKV6 WKV recurrence from a zero fp32 state.
+
+    r, k, v, w: (B, T, H, hd), w the per-step decay; u: (H, hd) the
+    current-token bonus.  out_t = r_t . (S + diag(u) k_t v_t^T), then
+    S = diag(w_t) S + k_t v_t^T; out in r's dtype."""
+    B, T, H, hd = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]                        # (1, H, hd, 1)
+    s = torch.zeros(B, H, hd, hd, dtype=torch.float32, device=r.device)
+    out = torch.empty(B, T, H, hd, dtype=torch.float32, device=r.device)
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]    # (B, H, hd, hd)
+        out[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uf * kv)
+        s = s * wf[:, t, :, :, None] + kv
+    return out.to(r.dtype)
+
+
+def pad_time(t: torch.Tensor, mult: int, value: float = 0.0) -> torch.Tensor:
+    """``t`` (B, T, ...) padded along T with ``value`` to a multiple of
+    ``mult``."""
+    pad = (-t.shape[1]) % mult
+    if pad == 0:
+        return t
+    fill = torch.full((t.shape[0], pad, *t.shape[2:]), value, dtype=t.dtype,
+                      device=t.device)
+    return torch.cat([t, fill], dim=1)
+
+
+def mamba2_ssd_plain(x, dt, A, B, C, *, chunk: int = 64) -> torch.Tensor:
+    """Chunked Mamba2 SSD scan from h0 = 0, the TPU kernel's arithmetic.
+
+    x: (Bb, T, H, hp); dt: (Bb, T, H); A: (H,); B, C: (Bb, T, H, ds).
+    T is zero-padded to a multiple of ``chunk`` and the result sliced back;
+    the chunk is the arithmetic's (results differ with it by rounding).
+    y in x's dtype; no D term."""
+    T = x.shape[1]
+    xp, dtp, Bp, Cp = (pad_time(t, chunk) for t in (x, dt, B, C))
+    Bb, Tp, H, hp = xp.shape
+    ds = Bp.shape[-1]
+    la = dtp.float() * A.float()                            # (Bb, Tp, H)
+    below = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                  device=x.device))[None, :, :, None]
+    h = torch.zeros(Bb, H, hp, ds, dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, Tp, chunk):
+        sl = slice(c0, c0 + chunk)
+        xc, dtc = xp[:, sl].float(), dtp[:, sl].float()
+        Bc, Cc = Bp[:, sl].float(), Cp[:, sl].float()
+        cs = torch.cumsum(la[:, sl], dim=1)                 # (Bb, L, H)
+        seg = cs[:, :, None, :] - cs[:, None, :, :]         # (Bb, t, u, H)
+        decay = torch.where(below, torch.exp(seg), 0.0)
+        att = torch.einsum("bthn,buhn->btuh", Cc, Bc) * decay
+        y = torch.einsum("btuh,buhp->bthp", att, xc * dtc[..., None])
+        y = y + torch.exp(cs)[..., None] * torch.einsum("bthn,bhpn->bthp",
+                                                        Cc, h)
+        w_u = torch.exp(cs[:, -1:] - cs) * dtc              # (Bb, L, H)
+        h = h * torch.exp(cs[:, -1])[..., None, None] + torch.einsum(
+            "buhp,buhn->bhpn", xc * w_u[..., None], Bc)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :T].to(x.dtype)

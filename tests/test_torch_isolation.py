@@ -39,6 +39,16 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_the_walk_covers_every_module_of_the_port():
+    names = {str(p.relative_to(REPO / "src")) for p in PORT_FILES[:-1]}
+    for module in ("configs/__init__.py", "configs/base.py",
+                   "configs/qwen3_4b.py", "configs/rwkv6_7b.py",
+                   "configs/zamba2_7b.py", "kernels/ops.py",
+                   "kernels/flash_attention.py", "kernels/rwkv6_wkv.py",
+                   "kernels/mamba2_ssd.py"):
+        assert f"repro_torch/{module}" in names
+
+
 def test_every_kernel_source_is_in_the_package():
     csrc = REPO / "src" / "repro_torch" / "csrc"
     from repro_torch.kernels import _build
