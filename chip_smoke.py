@@ -7,13 +7,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all at once);
+   source, all at once); every dense conv instantiation must hold
+   tensor-core ``HGMMA``s in its SASS and no depthwise one a stack frame
+   (``-Xptxas -v``, ``cuobjdump -sass``);
 3. hold the conv kernels against their plain PyTorch version at every
    distinct conv (and fused conv+act+pool) shape of AlexNet, VGG16 and
    MobileNetV2 at 224 px, batch 1, of AlexNet and MobileNetV2 at batch
    4, and of two depthwise convs with a fused pool, fp32 (1e-4 of scale)
    and bf16 (2e-2 of scale); outside VGG16 every fused conv equals the
-   unfused conv followed by its activation and pool, bitwise;
+   unfused conv followed by its activation and pool, bitwise, and at
+   every shape a batch-4 launch equals four batch-1 launches, bitwise;
 4. hold the int8 codec against its plain version, bitwise, at every
    boundary shape the main path's plans pick and a flat (4, 4096);
 5. the main path: ``repro_torch.launch.serve.serve_cnn`` for AlexNet and
@@ -25,7 +28,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the CPU: logits within 1e-3 of scale (follow wire) or the same top-1
    (int8 wire);
 6. time every kernel against its plain version and the PyTorch library
-   call (``F.conv2d``; ``torch.mul`` for dequantize; none for quantize;
+   call (``F.conv2d``, fp32 and bf16; ``torch.mul`` for dequantize; none
+   for quantize;
    ``F.scaled_dot_product_attention`` for flash attention, with an
    explicit end-aligned mask where Sq < Sk; none for WKV and SSD) at the
    main paths' shapes (CUDA graphs of
@@ -69,6 +73,9 @@ SRC = os.path.join(ROOT, "src")
 # cores, bf16 on the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
+# The rate of the arithmetic the dense conv kernel runs: fp32 storage as
+# three TF32 tensor-core passes (495 TFLOP/s each), bf16 as one bf16 pass.
+CONV_PEAK = {"fp32": 495e12 / 3, "bf16": 989e12}
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
 LOGIT_TOL = 1e-3
@@ -170,7 +177,7 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
     gen = torch.Generator().manual_seed(1)
     worst = {}
     rows = []
-    n_fused = 0
+    n_fused = n_batch = 0
     # batch 1 (and the int8 runs' microbatches) and the follow-wire runs'
     # batch 4, where the planner may pick another blocking
     cases = conv_cases(cnn, [("alexnet", 1), ("vgg16", 1),
@@ -201,6 +208,16 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
                 check(torch.equal(u, got),
                       f"{kind} {dname} {call}: fused != unfused")
                 n_fused += 1
+            # batch 4 == four batch-1 launches: the planner may tile the
+            # two differently, the sums may not differ
+            x4 = x if x.shape[0] == 4 else torch.randn(
+                (4,) + tuple(x.shape[1:]), generator=gen).to(dtype).to(dev)
+            y4 = got if x4 is x else kconv.conv2d(x4, w, bias=b, **kw)
+            y1 = torch.cat([kconv.conv2d(x4[i:i + 1], w, bias=b, **kw)
+                            for i in range(4)])
+            check(torch.equal(y4, y1),
+                  f"{kind} {dname} {call}: batch 4 != 4 x batch 1")
+            n_batch += 1
             rows.append(dict(kernel=kind, dtype=dname, model=call["model"],
                              x=list(call["x_shape"]), w=list(call["w_shape"]),
                              stride=call["stride"], pad=call["pad"],
@@ -208,7 +225,8 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
                              max_abs_err=err, scale=scale))
     print(f"phase 3: {len(rows)} conv checks against the plain version "
           f"passed; {n_fused} fused convs equal their unfused chain "
-          f"bitwise; worst abs err " + ", ".join(
+          f"bitwise; {n_batch} batch-4 launches equal four batch-1 "
+          f"launches bitwise; worst abs err " + ", ".join(
               f"{k}/{d}={v:.3g}" for (k, d), v in sorted(worst.items())))
     return worst, rows
 
@@ -409,6 +427,11 @@ def in_turns(timers: dict, rounds=2) -> dict:
 
 
 def conv_bound(call, dtype):
+    """(operations time at the rate of the kernel's arithmetic, bytes
+    time, operations time at the CUDA-core fp32 rate), in seconds.  The
+    depthwise kernel runs on the CUDA cores, so its first and last agree;
+    the CUDA-core figure keeps the earlier CUDA-core kernels' bound
+    comparable."""
     n, cin, h, w = call["x_shape"]
     cout, cin_pg, k, _ = call["w_shape"]
     ho = (h + 2 * call["pad"] - k) // call["stride"] + 1
@@ -421,7 +444,9 @@ def conv_bound(call, dtype):
     flops = 2.0 * n * cout * ho * wo * cin_pg * k * k
     nbytes = esize * (n * cin * h * w + cout * cin_pg * k * k
                       + n * cout * po * pw) + 4 * cout
-    return flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    depthwise = call["groups"] > 1 and call["groups"] == cin
+    rate = PEAK_FLOPS["fp32"] if depthwise else CONV_PEAK[dtype]
+    return flops / rate, nbytes / PEAK_BYTES, flops / PEAK_FLOPS["fp32"]
 
 
 def phase_time(torch, F, cnn, kconv, kquant, ref, shapes, dev):
@@ -433,31 +458,45 @@ def phase_time(torch, F, cnn, kconv, kquant, ref, shapes, dev):
     agg = {}
     rows = []
     for call in calls:
-        x, w, b = make_inputs(torch, call, torch.float32, gen, dev)
         kw = conv_kwargs(call)
         kind = "conv2d_depthwise" if call["groups"] > 1 \
             and call["groups"] == call["x_shape"][1] else "conv2d_dense"
-        t = in_turns({
-            "ms": Timer(torch, lambda: kconv.conv2d(x, w, bias=b, **kw)),
-            "plain_ms": Timer(torch,
-                              lambda: ref.conv2d_plain(x, w, bias=b, **kw)),
-            "library_ms": Timer(torch, lambda: F.conv2d(
-                x, w, b, stride=call["stride"], padding=call["pad"],
-                groups=call["groups"]))})
-        t_f, t_b = conv_bound(call, "fp32")
-        row = dict(kernel=kind, model=call["model"], x=list(call["x_shape"]),
-                   w=list(call["w_shape"]), stride=call["stride"],
-                   pad=call["pad"], act=call["activation"],
-                   pool=call["pool_k"], flop_ms=1e3 * t_f,
-                   byte_ms=1e3 * t_b, **t)
-        rows.append(row)
-        a = agg.setdefault(kind, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                                      flop_ms=0.0, byte_ms=0.0, bound_ms=0.0,
-                                      calls=0))
-        for key in ("ms", "plain_ms", "library_ms", "flop_ms", "byte_ms"):
-            a[key] += row[key]
-        a["bound_ms"] += 1e3 * max(t_f, t_b)
-        a["calls"] += 1
+        for dname, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            x, w, b = make_inputs(torch, call, dtype, gen, dev)
+            timers = {
+                "ms": Timer(torch, lambda: kconv.conv2d(x, w, bias=b, **kw)),
+                "library_ms": Timer(torch, lambda: F.conv2d(
+                    x, w, b.to(dtype), stride=call["stride"],
+                    padding=call["pad"], groups=call["groups"]))}
+            if dname == "fp32":
+                timers["plain_ms"] = Timer(
+                    torch, lambda: ref.conv2d_plain(x, w, bias=b, **kw))
+            t = in_turns(timers)
+            t_f, t_b, t_cc = conv_bound(call, dname)
+            row = dict(kernel=kind, dtype=dname, model=call["model"],
+                       x=list(call["x_shape"]), w=list(call["w_shape"]),
+                       stride=call["stride"], pad=call["pad"],
+                       act=call["activation"], pool=call["pool_k"],
+                       flop_ms=1e3 * t_f, byte_ms=1e3 * t_b,
+                       bound_ms=1e3 * max(t_f, t_b),
+                       cuda_core_flop_ms=1e3 * t_cc, **t)
+            rows.append(row)
+            a = agg.setdefault(kind, dict(
+                ms=0.0, plain_ms=0.0, library_ms=0.0, flop_ms=0.0,
+                byte_ms=0.0, bound_ms=0.0, bound_ms_cuda_cores=0.0,
+                ms_bf16=0.0, library_ms_bf16=0.0, bound_ms_bf16=0.0,
+                calls=0))
+            if dname == "bf16":
+                a["ms_bf16"] += row["ms"]
+                a["library_ms_bf16"] += row["library_ms"]
+                a["bound_ms_bf16"] += row["bound_ms"]
+                continue
+            for key in ("ms", "plain_ms", "library_ms", "flop_ms", "byte_ms",
+                        "bound_ms"):
+                a[key] += row[key]
+            a["bound_ms_cuda_cores"] += 1e3 * max(t_cc, t_b)
+            a["calls"] += 1
     for shape in shapes:
         x = (3 * torch.randn(shape, generator=gen)).to(dev)
         axis = kquant.default_channel_axis(x.ndim)
@@ -821,6 +860,18 @@ def main() -> int:
             if "registers" in ln or "spill" in ln]
     print(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k}: {len(v)} B of log' for k, v in logs.items())})")
+    conv_sass = _build.sass_report(_build._target("conv2d"))
+    conv_ptxas = _build.ptxas_report(logs["conv2d"])
+    for name, r in conv_sass.items():
+        if name.startswith("conv2d_dense_kernel"):
+            check(r["hgmma"] > 0, f"{name}: no HGMMA in its SASS")
+    for name, r in conv_ptxas.items():
+        if name.startswith("conv2d_depthwise_kernel"):
+            check(r["stack"] == 0, f"{name}: {r['stack']} B stack frame")
+    print("phase 2: conv kernels (registers/stack B/SASS/HGMMA): " + ", ".join(
+        f"{n[7:]} {conv_ptxas.get(n, {}).get('registers', '?')}/"
+        f"{conv_ptxas.get(n, {}).get('stack', '?')}/{r['instructions']}/"
+        f"{r['hgmma']}" for n, r in sorted(conv_sass.items())))
 
     worst, conv_rows = phase_conv(torch, F, cnn, kconv, ref, dev)
     shapes = boundary_shapes(cnn, core, profiles) + [(4, 4096)]
@@ -859,8 +910,12 @@ def main() -> int:
             else "bytes",
             "library_ms": a["library_ms"],
             "calls_timed": a["calls"],
-            "max_abs_err_bf16": worst[(name, "bf16")]})
+            "max_abs_err_bf16": worst[(name, "bf16")],
+            **{k: a[k] for k in ("bound_ms_cuda_cores", "ms_bf16",
+                                 "library_ms_bf16", "bound_ms_bf16")
+               if k in a}})
     detail = dict(card=card, torch=torch.__version__, conv_checks=conv_rows,
+                  conv_sass=conv_sass, conv_ptxas=conv_ptxas,
                   mixer_checks=mixer_rows, runs=runs, timings=time_rows,
                   kernels=kernels, ptxas=regs,
                   seconds=time.perf_counter() - t_start)

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Time the dense conv kernel at every register blocking, on one card.
+"""Time the dense conv kernel at every channel block, on one card.
 
     python3 scripts/conv_blocking_sweep.py
 
 For each dense conv of the served main path (AlexNet and MobileNetV2 at
-224 px, batch 4 and its batch-1 microbatches, fp32), plans the launch at
-each (COT, PT) blocking of ``repro_torch.kernels.conv2d.BLOCKINGS`` that
-fits, times it (CUDA graph of back-to-back launches, CUDA events), and
-times ``F.conv2d`` beside it.  Prints one row per shape with the fastest
-blocking and the one ``plan_conv`` picks, and writes every time to
-``chiprun_out/conv_blocking_sweep.json`` -- the data the planner's
-blocking rule is set from.  Needs an NVIDIA card."""
+224 px, batch 4 and its batch-1 microbatches, fp32 and bf16), plans the
+launch at each channel block BN of ``repro_torch.kernels.conv2d.BNS``
+and each shared-memory budget of BUDGETS (which sets the ring's depth
+and how many CTAs share an SM), times it (CUDA graph of back-to-back
+launches, CUDA events) and times ``F.conv2d`` beside it.  The K
+decomposition (k-steps, stages, segments) is the weights' and is not a
+lever.  Then scores the planner's rule -- the widest BN giving
+``TARGET_CTAS[dtype]`` CTAs, else the one giving the most -- at several
+targets and budgets against the per-shape best.  Prints one row per
+shape and the score of each target and budget, and writes every time to
+``chiprun_out/conv_blocking_sweep.json``: the data the planner's rule is
+set from.  Needs an NVIDIA card."""
 from __future__ import annotations
 
 import json
@@ -19,6 +24,16 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TARGETS = (66, 132, 198, 264, 396, 528)
+BUDGETS = (113 * 1024, 75 * 1024, 56 * 1024)   # 2, 3, 4 CTAs an SM
+
+
+def rule(ctas: dict, target: int) -> int:
+    """The planner's pick among {bn: ctas} at ``target``."""
+    for bn in sorted(ctas, reverse=True):
+        if ctas[bn] >= target:
+            return bn
+    return max(ctas, key=lambda bn: (ctas[bn], bn))
 
 
 def main() -> int:
@@ -54,60 +69,66 @@ def main() -> int:
                 if c["groups"] == 1 and key not in seen:
                     seen.add(key)
                     calls.append(dict(c, model=name))
-    all_blockings = kconv.BLOCKINGS
+    all_bns, budget0 = kconv.BNS, kconv.RING_BUDGET
     rows = []
-    for call in calls:
-        x, w, b = make_inputs(torch, call, torch.float32, gen, dev)
-        kw = conv_kwargs(call)
-        kconv.plan_conv.cache_clear()
-        picked = kconv.plan_conv(call["x_shape"], call["w_shape"],
-                                 stride=call["stride"], pad=call["pad"],
-                                 activation=call["activation"],
-                                 pool_k=call["pool_k"],
-                                 pool_s=call["pool_s"])
-        timers, geoms = {}, {}
-        for blocking in all_blockings:
-            kconv.BLOCKINGS = (blocking,)
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for call in calls:
+            x, w, b = make_inputs(torch, call, dtype, gen, dev)
+            kw = conv_kwargs(call)
+            timers, ctas = {}, {}
+            for budget in BUDGETS:
+                for bn in all_bns:
+                    kconv.BNS, kconv.RING_BUDGET = (bn,), budget
+                    kconv.plan_conv.cache_clear()
+                    g = kconv.plan_conv(call["x_shape"], call["w_shape"],
+                                        dtype=dtype, **kw)
+                    ctas[bn] = g.ctas
+                    timers[(bn, budget)] = Timer(
+                        torch, lambda: kconv.conv2d(x, w, bias=b, **kw))
+            kconv.BNS, kconv.RING_BUDGET = all_bns, budget0
             kconv.plan_conv.cache_clear()
-            try:
-                g = kconv.plan_conv(call["x_shape"], call["w_shape"],
-                                    stride=call["stride"], pad=call["pad"],
-                                    activation=call["activation"],
-                                    pool_k=call["pool_k"],
-                                    pool_s=call["pool_s"])
-            except ValueError:
-                continue
-            geoms[blocking] = g
-            timers[blocking] = Timer(
-                torch, lambda: kconv.conv2d(x, w, bias=b, **kw))
-        kconv.BLOCKINGS = all_blockings
-        kconv.plan_conv.cache_clear()
-        timers["library"] = Timer(torch, lambda: F.conv2d(
-            x, w, b, stride=call["stride"], padding=call["pad"]))
-        t = in_turns(timers)
-        lib = t.pop("library")
-        best = min(t, key=t.get)
-        rows.append(dict(
-            model=call["model"], x=list(call["x_shape"]),
-            w=list(call["w_shape"]), stride=call["stride"],
-            pool=call["pool_k"], library_us=1e3 * lib,
-            picked=[picked.cot, picked.pt], best=list(best),
-            us={f"{c}x{p}": 1e3 * v for (c, p), v in t.items()},
-            ctas={f"{c}x{p}": g.ctas for (c, p), g in geoms.items()}))
-        print(f"{call['model'][:5]} x={call['x_shape']} w={call['w_shape']}"
-              f" best {best} {1e3 * t[best]:.1f} us, picked "
-              f"{(picked.cot, picked.pt)} "
-              f"{1e3 * t[(picked.cot, picked.pt)]:.1f} us, library "
-              f"{1e3 * lib:.1f} us")
-    tot = {k: sum(r[k] for r in rows) for k in ("library_us",)}
-    tot["best_us"] = sum(min(r["us"].values()) for r in rows)
-    tot["picked_us"] = sum(r["us"]["{}x{}".format(*r["picked"])]
-                           for r in rows)
-    print(json.dumps(tot))
+            timers["library"] = Timer(torch, lambda: F.conv2d(
+                x, w, b.to(dtype), stride=call["stride"],
+                padding=call["pad"]))
+            t = in_turns(timers)
+            lib = t.pop("library")
+            picked = kconv.plan_conv(call["x_shape"], call["w_shape"],
+                                     dtype=dtype, **kw).bn
+            best = min(t, key=t.get)
+            rows.append(dict(
+                dtype=dname, model=call["model"], x=list(call["x_shape"]),
+                w=list(call["w_shape"]), stride=call["stride"],
+                pool=call["pool_k"], library_us=1e3 * lib, picked=picked,
+                best=list(best),
+                us={f"{bn}/{bud // 1024}": 1e3 * v
+                    for (bn, bud), v in t.items()},
+                ctas={str(k): v for k, v in ctas.items()}))
+            print(f"{dname} {call['model'][:5]} x={call['x_shape']} "
+                  f"w={call['w_shape']} best bn{best[0]}/"
+                  f"{best[1] // 1024}KB {1e3 * t[best]:.1f} us, picked "
+                  f"bn{picked}/{budget0 // 1024}KB "
+                  f"{1e3 * t[(picked, budget0)]:.1f} us, library "
+                  f"{1e3 * lib:.1f} us")
+    scores = {}
+    for dname in ("fp32", "bf16"):
+        sub = [r for r in rows if r["dtype"] == dname]
+
+        def rule_us(r, tg, bud):
+            bn = rule({int(k): v for k, v in r["ctas"].items()}, tg)
+            return r["us"][f"{bn}/{bud // 1024}"]
+        scores[dname] = dict(
+            best_us=sum(min(r["us"].values()) for r in sub),
+            library_us=sum(r["library_us"] for r in sub),
+            picked_us=sum(r["us"][f"{r['picked']}/{budget0 // 1024}"]
+                          for r in sub),
+            rule_us={f"{tg}/{bud // 1024}": sum(rule_us(r, tg, bud)
+                                                for r in sub)
+                     for tg in TARGETS for bud in BUDGETS})
+        print(dname, json.dumps(scores[dname]))
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "conv_blocking_sweep.json"), "w") as f:
-        json.dump(dict(card=card, rows=rows, totals=tot), f, indent=1)
+        json.dump(dict(card=card, rows=rows, scores=scores), f, indent=1)
     return 0
 
 

@@ -1,72 +1,133 @@
 // Fused conv2d (+bias)(+relu/relu6)(+VALID maxpool) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/conv2d.py::_conv_kernel:
-//   * conv2d_dense_kernel   <- its dense/grouped branch (L464-477) and the
-//                              bias/activation/pool epilogue (L478-497);
+//   * conv2d_dense_kernel     <- its dense/grouped branch (L464-477) and
+//                                the bias/activation/pool epilogue
+//                                (L478-497);
 //   * conv2d_depthwise_kernel <- its depthwise branch (L451-463).
 //
-// What bounds it on an H100: the dense convs of AlexNet/VGG/MobileNetV2 do
-// 10-200 FLOPs per byte they must move, above the fp32 ridge (67 TFLOP/s
-// over 3.35 TB/s = 20 FLOP/B), so the dense kernel is bound by arithmetic.
-// This first version does that arithmetic on the CUDA cores in fp32 (for
-// bf16 storage too: inputs are widened on the way into shared memory), so
-// its ceiling is the 67 TFLOP/s fp32 rate, not the tensor cores; wgmma and
-// TMA staging are later work.  Short of that ceiling, what limits it is the
-// shared-memory loads each FMA needs and, on the deep 7x7-14x14 layers, too
-// few outputs to give every SM enough CTAs.  The depthwise 3x3 stencil does
-// ~2 FLOPs per byte: it is bound by memory, and runs on the CUDA cores with
-// no shared memory, each thread reading its 3x3 window through the L1
-// cache.
+// What bounds them on an H100.  The dense convs of AlexNet and
+// MobileNetV2 do 10-200 FLOPs per byte they must move.  In fp32 storage
+// the products run as three TF32 tensor-core passes (495 TFLOP/s each,
+// 165 effective), in bf16 as one bf16 pass (989 TFLOP/s): AlexNet's convs
+// are then bound by operations, MobileNetV2's pointwise convs by bytes
+// (3.35 TB/s), and the deep 7x7-14x14 layers by having too few output
+// tiles to fill 132 SMs.  The depthwise 3x3 stencil does ~2 FLOPs per
+// byte: it is bound by memory.  Measured, neither kernel is near its
+// bound: a dense stage is bound by the latency of its own staging,
+// barriers and gather, which one warpgroup runs in turn (PERF.md).
 //
-// Design of the dense kernel.  One CTA per (spatial tile, channel block of
-// one group, image).  It loops over the group's input channels in chunks:
-// each chunk stages the haloed input tile (zero outside the image, which
-// replaces the TPU wrapper's jnp.pad and slice-off) and the weight slice
-// (channel-minor, so a warp reads its weights as broadcast vector loads) in
-// shared memory as fp32; each thread keeps COT x PT fp32 accumulators in
-// registers (COT output channels x PT pixels of the conv tile).  The
-// planner picks (COT, PT) per launch: 8x2 where the output is large enough
-// to fill the card with CTAs, down to 2x1 for the deep 7x7 and 13x13
-// layers, whose few outputs would otherwise occupy a handful of SMs (the
-// order of each output's sum does not depend on the choice).  When a
-// maxpool is fused, the CTA writes its activated conv tile to shared memory
-// and takes the max over the pool windows from there; overlapping windows
-// (k=3 > s=2) are covered because the conv tile spans (tile-1)*s + k
-// rows and columns, and pooled tiles start on window starts.  The launch
-// geometry (tiles, chunk, shared-memory bytes) is computed in Python
-// (repro_torch/kernels/conv2d.py::plan_conv), where the CPU tests check it.
+// Dense design: an implicit GEMM on wgmma.  M = the BM=64 pixels of one
+// rectangular conv tile of one image (for a fused pool the tile covers
+// whole pool windows), N = a block of BN output channels of one group
+// (BN = 16, 32 or 64, picked per launch by the planner), K = the
+// cin_pg*K*K taps in OIHW's flat (ci, kh, kw) order, so a weight row is
+// K-major as it lies in memory.  One warpgroup (128 threads) per CTA.  K
+// is walked in stages of BK=64 taps through a ring of nstage (2-4) shared
+// slots: nstage - 1 stages are in flight while one is multiplied.  A slot
+// holds the haloed input planes of the channels its taps read (copied
+// with cp.async, zero-filled outside the image, which replaces the TPU
+// wrapper's jnp.pad and every bounds check), a table of each tap's
+// offset in those planes, and the BN x BK weight slice in wgmma's
+// no-swizzle K-major layout (8x16-byte core matrices).  Each thread walks
+// the taps by adding per-conv constants, never dividing.  The A operand
+// (im2col) is gathered from the staged planes straight into registers in
+// wgmma's A-fragment layout (tf32 wgmma wants K-major shared operands,
+// which im2col is not): element (m, k) is plane[pix(m) + tap(k)].  A
+// stage's gather is unrolled without a branch, then its products issue
+// back to back under one wait.  B is read by the descriptor.  fp32
+// storage: each value is split with cvt.rna.tf32.f32 into big = tf32(v)
+// and small = tf32(v - big) (A in registers; B into the slot and a second
+// buffer, from registers loaded a stage early where weight rows are
+// 16-byte runs, else by a pass over the slot), and each k-step issues
+// small*big, big*small, big*big, in that order, into one fp32
+// accumulator.  bf16 storage: one bf16 wgmma a k-step, fp32 accumulation
+// (its products are exact in fp32).  Epilogue: fp32 bias, activation,
+// then the tile goes through shared memory (channel-major) for coalesced
+// stores, or for the maxpool over the tile's windows (overlapping windows
+// included).  Where rows, planes and weights are aligned, the planner
+// picks 16- or 8-byte copies (vec_x, vec_b); TMA is not used: the 13-,
+// 27-, 55-, 7- and 14-wide NCHW rows and the Cin=3 weight rows break its
+// 16-byte stride rule, and each launch would need its tensor maps
+// encoded on the host.  The launch geometry (tiles, K decomposition, ring
+// depth, slot layout, shared bytes, the divisors' magic numbers) is
+// computed in Python (repro_torch/kernels/conv2d.py::plan_conv), where
+// the CPU tests check it; this file computes none of it.
 //
-// Invariant: every conv output is summed in fp32 in one fixed order --
-// input channel, then kh, then kw, each term one fmaf -- whatever the tile
-// geometry, chunking, batch size or pool fusion.  So a fused
-// conv->act->pool equals the unfused conv+act followed by a maxpool
-// bitwise, and split and monolithic runs give bitwise equal logits.
+// Summation contract (dense).  Each output is its fp32 sum over the flat
+// tap index k, in k-steps of the wgmma depth (8 taps for tf32, 16 for
+// bf16) taken in ascending order from tap 0, zero-padded at the end to a
+// whole stage (the padding adds exact zeros); each fp32 k-step adds its
+// three TF32 passes in the order above.  The k-steps, the stage
+// boundaries (whole k-steps, every BK taps) and the split-K segments
+// (one: there is no split-K) are functions of the weight shape and dtype
+// alone, never of batch, spatial tile, BN, ring depth or pool fusion; the
+// tensor cores sum an element the same way whatever its row or column in
+// the tile.  So a fused conv->act->pool equals the unfused conv+act
+// followed by a maxpool bitwise, a batch-4 launch equals four batch-1
+// launches bitwise, and split and monolithic runs give bitwise equal
+// logits.
+//
+// Depthwise design: a shared-memory stencil.  One CTA (256 threads) per
+// (spatial tile, block of cb channels, image) stages each channel's
+// haloed input tile once (cp.async zero-fill for fp32; bf16 is widened
+// on the way in) and its weights; each thread computes strips of 4
+// outputs along a row, its K*K weights and its window rows in registers
+// (K=3 at stride 1 or 2 is compiled for its shape, reading the window as
+// float4s; other K <= 7 take a generic path).  A fused pool reads the
+// activated conv tile from shared memory.  Per output the arithmetic is
+// fmaf over kh then kw from 0, then + bias, then the activation, as in
+// the CUDA-core kernel it replaces, so its outputs are bitwise the same.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-// Index of each field in the int array the Python wrapper passes
-// (kept in step with repro_torch/kernels/conv2d.py::_PARAM_FIELDS).
+// Index of each field in the int array the Python wrapper passes (kept
+// in step with repro_torch/kernels/conv2d.py::_PARAM_FIELDS; ConvArgs
+// holds the same fields in the same order).
 enum Param {
   P_N, P_CIN, P_H, P_W, P_COUT, P_CIN_PG, P_COUT_PG, P_K, P_STRIDE, P_PAD,
-  P_ACT, P_POOL_K, P_POOL_S, P_PO, P_PW, P_TILE_OH, P_TILE_OW, P_CONV_TH,
-  P_CONV_TW, P_IN_TH, P_IN_TW, P_CI_CHUNK, P_TILES_H, P_TILES_W,
-  P_CO_BLOCKS, P_GROUPS, P_SMEM, P_DTYPE, P_DEPTHWISE, P_COT, P_PT, P_COUNT
+  P_ACT, P_POOL_K, P_POOL_S, P_HO, P_WO, P_PO, P_PW, P_GROUPS, P_DTYPE,
+  P_DEPTHWISE, P_TILE_OH, P_TILE_OW, P_CONV_TH, P_CONV_TW, P_IN_TH, P_IN_TW,
+  P_TILES_H, P_TILES_W, P_CO_BLOCKS, P_SMEM, P_BN, P_KTOT, P_BK, P_STAGES,
+  P_NSTAGE, P_CHMAX, P_PITCH, P_MAGIC, P_VEC_X, P_VEC_B, P_SLOT, P_OFF_B,
+  P_OFF_BS, P_OFF_TAB, P_OFF_PX, P_OFF_TOFF, P_KQ, P_KR, P_CI_LAST, P_CB,
+  P_KT, P_PITCH_W, P_OFF_W, P_OFF_CT, P_MAGIC_W, P_MAGIC_PC, P_MAGIC_NS,
+  P_COUNT
 };
 
 struct ConvArgs {
   int N, Cin, H, W, Cout, cin_pg, cout_pg, K, stride, pad, act, pool_k,
-      pool_s, Po, Pw, tile_oh, tile_ow, conv_th, conv_tw, in_th, in_tw,
-      ci_chunk, tiles_h, tiles_w, co_blocks, groups;
+      pool_s, Ho, Wo, Po, Pw, groups, dtype, depthwise, tile_oh, tile_ow,
+      conv_th, conv_tw, in_th, in_tw, tiles_h, tiles_w, co_blocks, smem, bn,
+      ktot, bk, stages, nstage, chmax, pitch, magic, vec_x, vec_b, slot,
+      off_b, off_bs, off_tab, off_px, off_toff, kq, kr, ci_last, cb, kt,
+      pitch_w, off_w, off_ct, magic_w, magic_pc, magic_ns;
 };
+static_assert(sizeof(ConvArgs) == P_COUNT * sizeof(int),
+              "ConvArgs must mirror enum Param");
 
-constexpr int TP = 64;              // pixel lanes per CTA
-constexpr int TC = 4;               // channel lanes per CTA
-constexpr int THREADS = TP * TC;    // 256
+constexpr int BM = 64;              // dense: conv pixels a CTA
+static_assert(BM == 4 * 16, "one warpgroup: 4 warps of 16 A rows");
+constexpr int THREADS = 128;        // dense: one warpgroup
+constexpr int BK = 64;              // dense: taps a stage
+constexpr int EPI_PITCH = 68;       // dense: floats per epilogue row
 constexpr int DW_THREADS = 256;
+constexpr int DW_VEC = 4;           // depthwise: outputs a strip
+
+template <typename T> struct Store;
+template <> struct Store<float> {
+  static constexpr int KSTEP = 8;   // taps of one tf32 wgmma
+  static constexpr int E = 4;       // elements of a 16-byte copy
+};
+template <> struct Store<__nv_bfloat16> {
+  static constexpr int KSTEP = 16;
+  static constexpr int E = 8;
+};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -87,296 +148,846 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
-// COT output channels x PT conv-tile pixels per thread; a CTA covers
-// TC * COT channels and up to TP * PT pixels.  KT is the kernel size when
-// it is known at compile time (1 or 3, the taps then unroll), else 0.
-template <typename T, int COT, int PT, int KT>
-__global__ void __launch_bounds__(THREADS, 2)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async with zero-fill: when !valid no byte is read and zeros land.
+// No "memory" clobber: the copies read inputs this kernel never writes,
+// and what they write is read only after cp.async.wait_group and a
+// barrier (both clobber memory), so other loads may move across them.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// wait until at most n (0..2) of this thread's copy groups are pending
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+// Up to U elements into shared memory, zero where !valid (a null dst is
+// skipped): cp.async for 4-byte elements; for bf16 (cp.async copies 4
+// bytes at least) U loads in flight, then U stores.
+template <typename T, int U> struct Staged;
+template <int U> struct Staged<float, U> {
+  __device__ __forceinline__ void put(int, float* dst, const float* src,
+                                      bool valid) {
+    if (dst != nullptr) cp_async4(dst, src, valid);
+  }
+  __device__ __forceinline__ void land() {}
+};
+template <int U> struct Staged<__nv_bfloat16, U> {
+  unsigned short v[U];
+  unsigned short* d[U];
+  __device__ __forceinline__ void put(int u, __nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, bool valid) {
+    d[u] = reinterpret_cast<unsigned short*>(dst);
+    v[u] = (dst != nullptr && valid)
+               ? __ldg(reinterpret_cast<const unsigned short*>(src)) : 0;
+  }
+  __device__ __forceinline__ void land() {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (d[u] != nullptr) *d[u] = v[u];
+  }
+};
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Descriptor of a K-major B tile without swizzle: 8-row x 16-byte core
+// matrices, the two of one k-step 128 bytes apart (LBO), 8-row groups
+// 256 bytes apart (SBO).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16)
+         | ((uint64_t)(256 >> 4) << 32);
+}
+
+// Byte offset of B element (n, k) of a stage in that layout: k-step
+// blocks of BN*32 bytes, then 8-row groups of 256, then the core matrix.
+template <int BN, int ES, int KSTEP>
+__device__ __forceinline__ int b_off(int n, int k) {
+  constexpr int E = 16 / ES;
+  return (k / KSTEP) * BN * 32 + (n >> 3) * 256 + ((k % KSTEP) / E) * 128
+         + (n & 7) * 16 + (k % E) * ES;
+}
+
+// wgmma with A from registers and B from shared memory, D += A * B, for
+// M = 64 and N = 16, 32, 64.  A fragment (per warp w, g = lane / 4,
+// t = lane % 4): tf32 a0..a3 = (16w+g, t), (16w+g+8, t), (16w+g, t+4),
+// (16w+g+8, t+4); bf16 the same rows at column pairs (2t, 2t+1) and
+// (2t+8, 2t+9).  D: d[4j..4j+3] = (16w+g, 8j+2t), (16w+g, 8j+2t+1),
+// (16w+g+8, 8j+2t), (16w+g+8, 8j+2t+1).
+__device__ __forceinline__ void wgmma_tf32_n16(float* d, const uint32_t* a,
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n32(float* d, const uint32_t* a,
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a,
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n16(float* d, const uint32_t* a,
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n32(float* d, const uint32_t* a,
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n64(float* d, const uint32_t* a,
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint64_t desc) {
+  if constexpr (BN == 16) wgmma_tf32_n16(d, a, desc);
+  else if constexpr (BN == 32) wgmma_tf32_n32(d, a, desc);
+  else wgmma_tf32_n64(d, a, desc);
+}
+template <int BN>
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint64_t desc) {
+  if constexpr (BN == 16) wgmma_bf16_n16(d, a, desc);
+  else if constexpr (BN == 32) wgmma_bf16_n32(d, a, desc);
+  else wgmma_bf16_n64(d, a, desc);
+}
+
+// Where a stage's taps lie, walked one stage at a time without a
+// division: (channel, tap within the channel) of its first tap, its last
+// tap and this thread's tap (k0 + tid, tid < BK).
+struct TapWalk {
+  int c_lo, r_lo, c_hi, r_hi, cj, rj;
+  __device__ __forceinline__ void init(const ConvArgs& a, int tid) {
+    const int KK = a.K * a.K;
+    c_lo = 0; r_lo = 0;
+    c_hi = (BK - 1) / KK; r_hi = (BK - 1) % KK;
+    cj = tid / KK; rj = tid % KK;
+  }
+  __device__ __forceinline__ static void step(int& c, int& r,
+                                              const ConvArgs& a, int KK) {
+    c += a.kq; r += a.kr;             // BK = kq * KK + kr
+    if (r >= KK) { r -= KK; ++c; }
+  }
+  __device__ __forceinline__ void next(const ConvArgs& a) {
+    const int KK = a.K * a.K;
+    step(c_lo, r_lo, a, KK); step(c_hi, r_hi, a, KK); step(cj, rj, a, KK);
+  }
+};
+
+// Copy the stage of taps [k0, k0 + BK) into slot `slot`: the input
+// planes of the channels those taps read, the taps' offsets in them, and
+// the BN x BK weight slice.  Issued by all threads; fp32 copies and the
+// 16-byte ones are cp.async.
+template <typename T, int BN>
+__device__ __forceinline__ void issue_stage(
+    unsigned char* smem, const ConvArgs& a, int slot, int k0,
+    const TapWalk& tw, const T* __restrict__ xg, const T* __restrict__ wg,
+    int co0, const int* pxtab, const int* toff, size_t hw, bool with_b) {
+  constexpr int ES = sizeof(T), E = Store<T>::E, KSTEP = Store<T>::KSTEP;
+  constexpr int SB = 8;               // bf16: loads in flight per thread
+  const int tid = threadIdx.x;
+  unsigned char* sl = smem + slot * a.slot;
+  T* xs = reinterpret_cast<T*>(sl);
+  int* tab = reinterpret_cast<int*>(sl + a.off_tab);
+  const int c_lo = tw.c_lo;
+  const int nch = min(tw.c_hi, a.ci_last) + 1 - c_lo;
+  const int in_plane = a.in_th * a.in_tw;
+  const uint32_t magic = static_cast<uint32_t>(a.magic);
+  const T* xc = xg + (size_t)c_lo * hw;
+  const int total = nch * in_plane;
+  if (a.vec_x == 2) {
+    // whole images, planes back to back: the stage is one aligned run
+    for (int i = tid * E; i + E <= total; i += THREADS * E)
+      cp_async16(xs + i, xc + i, true);
+    const int tail = total - total % E;
+    Staged<T, 1> st;
+    const int i = tail + tid;
+    st.put(0, i < total ? xs + i : nullptr, xc + i, true);
+    st.land();
+  } else if (a.vec_x == 1) {
+    // whole image rows: a plane's staged elements are aligned runs
+    for (int i = tid * E; i < total; i += THREADS * E) {
+      const int cl = in_plane == 1 ? i : __umulhi(i, magic);
+      const int e = i - cl * in_plane;
+      const int go = pxtab[e];
+      cp_async16(xs + cl * a.pitch + e, xc + cl * hw + max(go, 0), go >= 0);
+    }
+  } else if (a.vec_x == 3) {
+    // the same in 8-byte runs (rows and planes 8- but not 16-byte aligned)
+    constexpr int E8 = 8 / ES;
+    for (int i = tid * E8; i < total; i += THREADS * E8) {
+      const int cl = in_plane == 1 ? i : __umulhi(i, magic);
+      const int e = i - cl * in_plane;
+      const int go = pxtab[e];
+      cp_async8(xs + cl * a.pitch + e, xc + cl * hw + max(go, 0), go >= 0);
+    }
+  } else {
+    for (int i0 = tid; i0 < total; i0 += SB * THREADS) {
+      Staged<T, SB> st;
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        const int i = i0 + u * THREADS;
+        const int cl = in_plane == 1 ? i : __umulhi(i, magic);
+        const int e = i - cl * in_plane;
+        const int go = i < total ? pxtab[e] : -1;
+        st.put(u, i < total ? xs + cl * a.pitch + e : nullptr,
+               xc + cl * hw + max(go, 0), go >= 0);
+      }
+      st.land();
+    }
+  }
+  if (tid < BK)                       // -1: a padding tap, reads as zero
+    tab[tid] = k0 + tid < a.ktot ? (tw.cj - c_lo) * a.pitch + toff[tw.rj]
+                                 : -1;
+  unsigned char* bs = sl + a.off_b;
+  if (!with_b) return;
+  if (a.vec_b) {
+    // lanes take 8 rows x 16 bytes: one core matrix, no bank conflict
+    for (int i = tid; i < BN * BK / E; i += THREADS) {
+      const int rest = i >> 3;
+      const int n = (rest / (BK / E)) * 8 + (i & 7);
+      const int kl = (rest % (BK / E)) * E, k = k0 + kl;
+      const bool ok = co0 + n < a.cout_pg && k < a.ktot;
+      cp_async16(bs + b_off<BN, ES, KSTEP>(n, kl),
+                 wg + (ok ? (size_t)n * a.ktot + k : 0), ok);
+    }
+  } else {
+    for (int i0 = tid; i0 < BN * BK; i0 += SB * THREADS) {
+      Staged<T, SB> st;
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        const int i = i0 + u * THREADS;
+        const int rest = i / (8 * E);
+        const int n = (rest / (BK / E)) * 8 + (i / E) % 8;
+        const int kl = (rest % (BK / E)) * E + i % E, k = k0 + kl;
+        const bool ok = co0 + n < a.cout_pg && k < a.ktot;
+        st.put(u, i < BN * BK
+                      ? reinterpret_cast<T*>(bs + b_off<BN, ES, KSTEP>(n, kl))
+                      : nullptr,
+               wg + (ok ? (size_t)n * a.ktot + k : 0), ok);
+      }
+      st.land();
+    }
+  }
+}
+
+// fp32 weights with 16-byte rows skip the slot's split pass: a stage's
+// slice is loaded into registers one stage early (while the current stage
+// is multiplied), then split into big and small and stored.  Thread tid
+// holds chunks tid + q * THREADS of the slice, 4 taps of one row each.
+template <int BN>
+struct WeightRegs {
+  static constexpr int NQ = BN * BK / 4 / THREADS;
+  float4 v[NQ];
+  unsigned ok = 0;                    // bit q: chunk q is real weights
+  __device__ __forceinline__ static void at(int q, int& n, int& kl) {
+    const int i = threadIdx.x + q * THREADS, rest = i >> 3;
+    n = (rest / (BK / 4)) * 8 + (i & 7);
+    kl = (rest % (BK / 4)) * 4;
+  }
+  __device__ __forceinline__ void load(const ConvArgs& a, const float* wg,
+                                       int co0, int k0) {
+    // load from a valid address either way and zero at store time: a
+    // select here would wait for the load
+    ok = 0;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      int n, kl;
+      at(q, n, kl);
+      const int k = k0 + kl;
+      const bool real = co0 + n < a.cout_pg && k < a.ktot;
+      ok |= (unsigned)real << q;
+      v[q] = __ldg(reinterpret_cast<const float4*>(
+          wg + (real ? (size_t)n * a.ktot + k : 0)));
+    }
+  }
+  __device__ __forceinline__ void store(const ConvArgs& a,
+                                        unsigned char* sl) const {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      int n, kl;
+      at(q, n, kl);
+      const int off = b_off<BN, 4, 8>(n, kl);
+      const float4 x = (ok >> q) & 1 ? v[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 big, small;
+      big.x = __uint_as_float(tf32_rna(x.x));
+      big.y = __uint_as_float(tf32_rna(x.y));
+      big.z = __uint_as_float(tf32_rna(x.z));
+      big.w = __uint_as_float(tf32_rna(x.w));
+      small.x = __uint_as_float(tf32_rna(x.x - big.x));
+      small.y = __uint_as_float(tf32_rna(x.y - big.y));
+      small.z = __uint_as_float(tf32_rna(x.z - big.z));
+      small.w = __uint_as_float(tf32_rna(x.w - big.w));
+      *reinterpret_cast<float4*>(sl + a.off_b + off) = big;
+      *reinterpret_cast<float4*>(sl + a.off_bs + off) = small;
+    }
+  }
+};
+
+// One stage's products: gather the A fragments of its k-steps (all loads
+// independent), then issue their wgmmas back to back under one commit.
+// The caller waits.
+template <typename T, int BN, int SK>
+__device__ __forceinline__ void stage_mma(float* acc, const T* xs,
+                                          const int* tab, const int* pix,
+                                          int t4, uint32_t bbig,
+                                          uint32_t bsmall) {
+  constexpr bool F32 = sizeof(T) == 4;
+    // gather the stage's A fragments (all loads independent), then
+    // issue its products back to back under one wait
+    uint32_t fb[SK][4], fs[SK][4];
+#pragma unroll
+    for (int j = 0; j < SK; ++j) {
+      if constexpr (F32) {
+        const int o0 = tab[j * 8 + t4], o1 = tab[j * 8 + t4 + 4];
+        float v[4];
+        v[0] = o0 >= 0 ? xs[pix[0] + o0] : 0.f;
+        v[1] = o0 >= 0 ? xs[pix[1] + o0] : 0.f;
+        v[2] = o1 >= 0 ? xs[pix[0] + o1] : 0.f;
+        v[3] = o1 >= 0 ? xs[pix[1] + o1] : 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          fb[j][q] = tf32_rna(v[q]);
+          fs[j][q] = tf32_rna(v[q] - __uint_as_float(fb[j][q]));
+        }
+      } else {
+        const unsigned short* xu =
+            reinterpret_cast<const unsigned short*>(xs);
+        const int kb = j * 16 + 2 * t4;
+        const int o[4] = {tab[kb], tab[kb + 1], tab[kb + 8], tab[kb + 9]};
+        uint32_t u[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            u[h][q] = o[q] >= 0 ? xu[pix[h] + o[q]] : 0u;
+        fb[j][0] = u[0][0] | (u[0][1] << 16);
+        fb[j][1] = u[1][0] | (u[1][1] << 16);
+        fb[j][2] = u[0][2] | (u[0][3] << 16);
+        fb[j][3] = u[1][2] | (u[1][3] << 16);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < SK; ++j) {
+      const uint64_t db = b_desc(bbig + j * BN * 32);
+      if constexpr (F32) {
+        const uint64_t ds = b_desc(bsmall + j * BN * 32);
+        mma_tf32<BN>(acc, fs[j], db);   // small * big
+        mma_tf32<BN>(acc, fb[j], ds);   // big * small
+        mma_tf32<BN>(acc, fb[j], db);   // big * big
+      } else {
+        mma_bf16<BN>(acc, fb[j], db);
+      }
+    }
+    wgmma_commit();
+}
+
+// One CTA: a BM-pixel conv tile x BN output channels of group g, image n.
+template <typename T, int BN>
+__global__ void __launch_bounds__(THREADS)
 conv2d_dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ bias, T* __restrict__ y,
                     ConvArgs a) {
-  constexpr int CO_BLK = TC * COT;
-  constexpr int SB = 4;               // staging loads in flight per thread
-  extern __shared__ float smem[];
-  const int K = KT ? KT : a.K;
-  const int tid = threadIdx.x;
-  const int tp = tid % TP;            // a warp shares one channel lane
-  const int tc = tid / TP;
-  const int th_i = blockIdx.x / a.tiles_w;
-  const int tw_i = blockIdx.x % a.tiles_w;
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int KSTEP = Store<T>::KSTEP;
+  constexpr int SK = BK / KSTEP;      // k-steps a stage
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t4 = lane & 3;
+  const int th_i = blockIdx.x / a.tiles_w, tw_i = blockIdx.x % a.tiles_w;
   const int g = blockIdx.y / a.co_blocks;
-  const int co_g0 = (blockIdx.y % a.co_blocks) * CO_BLK;  // within group
+  const int co0 = (blockIdx.y % a.co_blocks) * BN;     // within group
   const int n = blockIdx.z;
   const int ps = a.pool_k ? a.pool_s : 1;
-  // origin of the output tile, of the conv tile, and of the input tile
   const int oh0 = th_i * a.tile_oh, ow0 = tw_i * a.tile_ow;
   const int ih0 = oh0 * ps * a.stride - a.pad;
   const int iw0 = ow0 * ps * a.stride - a.pad;
   const int npix = a.conv_th * a.conv_tw;
   const int in_plane = a.in_th * a.in_tw;
-  const int KK = K * K;
+  const size_t hw = (size_t)a.H * a.W;
+  const T* xg = x + ((size_t)n * a.Cin + (size_t)g * a.cin_pg) * hw;
+  const T* wg = w + ((size_t)g * a.cout_pg + co0) * a.ktot;
 
-  int off[PT];
-  bool pvalid[PT];
-#pragma unroll
-  for (int k = 0; k < PT; ++k) {
-    const int p = tp + k * TP;
-    pvalid[k] = p < npix;
-    const int r = pvalid[k] ? p / a.conv_tw : 0;
-    const int c = pvalid[k] ? p % a.conv_tw : 0;
-    off[k] = r * a.stride * a.in_tw + c * a.stride;
+  // where each staged element of a plane lies in the image (-1: outside),
+  // and each tap's offset inside a plane
+  int* pxtab = reinterpret_cast<int*>(smem + a.off_px);
+  int* toff = reinterpret_cast<int*>(smem + a.off_toff);
+  for (int e = tid; e < in_plane; e += THREADS) {
+    const int r = e / a.in_tw;
+    const int ih = ih0 + r, iw = iw0 + e - r * a.in_tw;
+    pxtab[e] = (ih >= 0 && ih < a.H && iw >= 0 && iw < a.W)
+                   ? ih * a.W + iw : -1;
   }
-  float acc[COT][PT];
+  for (int r = tid; r < a.K * a.K; r += THREADS)
+    toff[r] = (r / a.K) * a.in_tw + r % a.K;
+  // this thread's two A rows: offsets of their windows in a plane
+  int pix[2];
 #pragma unroll
-  for (int j = 0; j < COT; ++j)
-#pragma unroll
-    for (int k = 0; k < PT; ++k) acc[j][k] = 0.f;
-
-  const T* xn = x + ((size_t)n * a.Cin + (size_t)g * a.cin_pg) * a.H * a.W;
-  // weights sit after the input tile, 16-byte aligned, channel-minor:
-  // ws[(ci * KK + kk) * CO_BLK + col], so a thread's COT weights for one
-  // tap are one or two vector loads (the same address across a warp)
-  float* xs = smem;
-  float* ws = smem + ((a.ci_chunk * in_plane + 3) & ~3);
-  for (int cc = 0; cc < a.cin_pg; cc += a.ci_chunk) {
-    const int nci = min(a.ci_chunk, a.cin_pg - cc);
-    __syncthreads();                  // previous chunk fully consumed
-    // stage the haloed input tile; SB global loads in flight per thread
-    // before their stores (few warps per SM: latency must overlap here)
-    const int n_in = nci * in_plane;
-    for (int i0 = tid; i0 < n_in; i0 += SB * THREADS) {
-      float v[SB];
-#pragma unroll
-      for (int u = 0; u < SB; ++u) {
-        const int i = i0 + u * THREADS;
-        v[u] = 0.f;
-        if (i < n_in) {
-          const int ci = i / in_plane;
-          const int rem = i - ci * in_plane;
-          const int ih = ih0 + rem / a.in_tw;
-          const int iw = iw0 + rem % a.in_tw;
-          if (ih >= 0 && ih < a.H && iw >= 0 && iw < a.W)
-            v[u] = to_f(xn[((size_t)(cc + ci) * a.H + ih) * a.W + iw]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < SB; ++u)
-        if (i0 + u * THREADS < n_in) xs[i0 + u * THREADS] = v[u];
-    }
-    const int wrow = nci * KK;        // (ci, kk) taps of this chunk
-    // a warp stages 8 channels x 4 taps: 16-byte runs of each global row,
-    // and a 4-way (not 32-way) bank conflict on the transposed store
-    const int span = CO_BLK * ((wrow + 3) / 4) * 4;
-    for (int i0 = tid; i0 < span; i0 += SB * THREADS) {
-      float v[SB];
-      int dst[SB];
-#pragma unroll
-      for (int u = 0; u < SB; ++u) {
-        const int i = i0 + u * THREADS;
-        const int lane = i & 31, blk = i >> 5;
-        const int col = (blk % (CO_BLK / 8)) * 8 + (lane & 7);
-        const int tap = (blk / (CO_BLK / 8)) * 4 + (lane >> 3);
-        const int co = co_g0 + col;
-        v[u] = 0.f;
-        dst[u] = (i < span && tap < wrow) ? tap * CO_BLK + col : -1;
-        if (dst[u] >= 0 && co < a.cout_pg)
-          v[u] = to_f(w[((size_t)(g * a.cout_pg + co) * a.cin_pg + cc) * KK
-                        + tap]);
-      }
-#pragma unroll
-      for (int u = 0; u < SB; ++u)
-        if (dst[u] >= 0) ws[dst[u]] = v[u];
-    }
-    __syncthreads();
-#pragma unroll (KT == 1 ? 4 : 1)
-    for (int ci = 0; ci < nci; ++ci) {
-      const float* xc = xs + ci * in_plane;
-      const float* wc = ws + ci * KK * CO_BLK + tc * COT;
-#pragma unroll
-      for (int kh = 0; kh < K; ++kh) {
-#pragma unroll
-        for (int kw = 0; kw < K; ++kw) {
-          const int xo = kh * a.in_tw + kw;
-          const float* wt = wc + (kh * K + kw) * CO_BLK;
-          float wv[COT], xv[PT];
-          if constexpr (COT % 4 == 0) {
-#pragma unroll
-            for (int j = 0; j < COT; j += 4) {
-              const float4 v4 = *reinterpret_cast<const float4*>(wt + j);
-              wv[j] = v4.x; wv[j + 1] = v4.y; wv[j + 2] = v4.z;
-              wv[j + 3] = v4.w;
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < COT; j += 2) {
-              const float2 v2 = *reinterpret_cast<const float2*>(wt + j);
-              wv[j] = v2.x; wv[j + 1] = v2.y;
-            }
-          }
-#pragma unroll
-          for (int k = 0; k < PT; ++k) xv[k] = xc[off[k] + xo];
-#pragma unroll
-          for (int j = 0; j < COT; ++j)
-#pragma unroll
-            for (int k = 0; k < PT; ++k)
-              acc[j][k] = fmaf(wv[j], xv[k], acc[j][k]);
-        }
-      }
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int m = warp * 16 + (lane >> 2) + 8 * h;
+    const int r = m < npix ? m / a.conv_tw : 0;
+    const int c = m < npix ? m - r * a.conv_tw : 0;
+    pix[h] = r * a.stride * a.in_tw + c * a.stride;
   }
-
-  // epilogue: fp32 bias, then the activation
+  float acc[BN / 2];
 #pragma unroll
-  for (int j = 0; j < COT; ++j) {
-    const int co = co_g0 + tc * COT + j;
-    const float b = (bias != nullptr && co < a.cout_pg)
-                        ? bias[g * a.cout_pg + co] : 0.f;
-#pragma unroll
-    for (int k = 0; k < PT; ++k) acc[j][k] = activate(acc[j][k] + b, a.act);
-  }
-  T* yn = y + ((size_t)n * a.Cout + (size_t)g * a.cout_pg) * a.Po * a.Pw;
-  if (!a.pool_k) {
-#pragma unroll
-    for (int j = 0; j < COT; ++j) {
-      const int co = co_g0 + tc * COT + j;
-      if (co >= a.cout_pg) continue;
-#pragma unroll
-      for (int k = 0; k < PT; ++k) {
-        if (!pvalid[k]) continue;
-        const int p = tp + k * TP;
-        const int oh = oh0 + p / a.conv_tw, ow = ow0 + p % a.conv_tw;
-        if (oh < a.Po && ow < a.Pw)
-          yn[((size_t)co * a.Po + oh) * a.Pw + ow] = from_f<T>(acc[j][k]);
-      }
-    }
-    return;
-  }
-  // fused maxpool from the activated fp32 conv tile in shared memory
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  TapWalk walk;
+  walk.init(a, tid);
   __syncthreads();
-  float* tile = smem;                 // CO_BLK x npix
+
+  // the ring: nstage - 1 stages in flight while one is multiplied; one
+  // copy group per stage (empty past the last), so waiting for all but
+  // the newest nstage - 2 groups waits for stage s
+  const int ns = a.nstage;
+  int fill = 0;                       // the next stage to copy, its slot
+  int fill_slot = 0;
+  // fp32 weights through registers where their rows are 16-byte runs
+  const bool wregs = F32 && a.vec_b;
+  WeightRegs<BN> wr;
+  // iterations -(ns - 1) .. -1 only fill the ring (one issue site keeps
+  // the loop's code small)
+  int slot = 0;
+  for (int s = 1 - ns; s < a.stages; ++s) {
+    if (s >= 0) {
+      cp_async_wait_upto(ns - 2);
+      fence_proxy_async();            // this thread's copies, to wgmma
+      __syncthreads();                // everyone's; the last slot is free
+    }
+    const bool filling = fill < a.stages;
+    unsigned char* fsl = smem + fill_slot * a.slot;
+    if (filling) {
+      issue_stage<T, BN>(smem, a, fill_slot, fill * BK, walk, xg, wg, co0,
+                         pxtab, toff, hw, !wregs);
+      if constexpr (F32) {
+        if (wregs)
+          wr.load(a, reinterpret_cast<const float*>(wg), co0, fill * BK);
+      }
+    }
+    walk.next(a);
+    ++fill;
+    fill_slot = fill_slot + 1 == ns ? 0 : fill_slot + 1;
+    cp_async_commit();
+    if (s < 0) {
+      if constexpr (F32) {
+        if (wregs && filling) wr.store(a, fsl);
+      }
+      continue;
+    }
+    unsigned char* sl = smem + slot * a.slot;
+    slot = slot + 1 == ns ? 0 : slot + 1;
+    if (F32 && !wregs) {
+      // split B into big (in place) and small halves for 3xTF32
+      float4* bb = reinterpret_cast<float4*>(sl + a.off_b);
+      float4* bsm = reinterpret_cast<float4*>(sl + a.off_bs);
+      for (int i = tid; i < BN * BK / 4; i += THREADS) {
+        const float4 v = bb[i];
+        float4 big, small;
+        big.x = __uint_as_float(tf32_rna(v.x));
+        big.y = __uint_as_float(tf32_rna(v.y));
+        big.z = __uint_as_float(tf32_rna(v.z));
+        big.w = __uint_as_float(tf32_rna(v.w));
+        small.x = __uint_as_float(tf32_rna(v.x - big.x));
+        small.y = __uint_as_float(tf32_rna(v.y - big.y));
+        small.z = __uint_as_float(tf32_rna(v.z - big.z));
+        small.w = __uint_as_float(tf32_rna(v.w - big.w));
+        bb[i] = big;
+        bsm[i] = small;
+      }
+      fence_proxy_async();
+      __syncthreads();
+    }
+
+    const T* xs = reinterpret_cast<const T*>(sl);
+    const int* tab = reinterpret_cast<const int*>(sl + a.off_tab);
+    const uint32_t bbig = smem_addr(sl + a.off_b);
+    const uint32_t bsmall = smem_addr(sl + a.off_bs);
+    // every stage runs its SK k-steps unrolled without a branch; past
+    // the last tap the table and the weights are zero
+    stage_mma<T, BN, SK>(acc, xs, tab, pix, t4, bbig, bsmall);
+    wgmma_wait<0>();
+    // land the registers' weights; seen after the next barrier
+    if constexpr (F32) {
+      if (wregs && filling) wr.store(a, fsl);
+    }
+  }
+  __syncthreads();                    // the epilogue tile overlays the ring
+
+  // epilogue: fp32 bias and activation into a channel-major fp32 tile
+  float* ot = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int j = 0; j < COT; ++j)
+  for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int k = 0; k < PT; ++k)
-      if (pvalid[k]) tile[(tc * COT + j) * npix + tp + k * TP] = acc[j][k];
+    for (int q = 0; q < 2; ++q) {
+      const int col = j * 8 + 2 * t4 + q;
+      const int co = co0 + col;
+      const float b = (bias != nullptr && co < a.cout_pg)
+                          ? bias[g * a.cout_pg + co] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = warp * 16 + (lane >> 2) + 8 * h;
+        ot[col * EPI_PITCH + m] = activate(acc[4 * j + 2 * h + q] + b, a.act);
+      }
+    }
+  // each lane's (at most two) outputs of a channel: where they go, and
+  // for a pool where their window starts in the tile
+  const int plane = a.Po * a.Pw;
+  int dst[2], win[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int p = lane + 32 * q;
+    const int tw_o = a.pool_k ? a.tile_ow : a.conv_tw;
+    const int np = a.pool_k ? a.tile_oh * a.tile_ow : npix;
+    const int r = p / tw_o, c = p - r * tw_o;
+    const int oh = oh0 + r, ow = ow0 + c;
+    dst[q] = (p < np && oh < a.Po && ow < a.Pw) ? oh * a.Pw + ow : -1;
+    win[q] = a.pool_k ? (r * ps) * a.conv_tw + c * ps : p;
+  }
   __syncthreads();
-  const int tile_np = a.tile_oh * a.tile_ow;
-  for (int i = tid; i < CO_BLK * tile_np; i += THREADS) {
-    const int col = i / tile_np;
-    const int rem = i - col * tile_np;
-    const int pr = rem / a.tile_ow, pc = rem % a.tile_ow;
-    const int co = co_g0 + col;
-    const int oh = oh0 + pr, ow = ow0 + pc;
-    if (co >= a.cout_pg || oh >= a.Po || ow >= a.Pw) continue;
-    const float* t = tile + col * npix + (pr * ps) * a.conv_tw + pc * ps;
-    float m = -INFINITY;
-    for (int ph = 0; ph < a.pool_k; ++ph)
-      for (int pw = 0; pw < a.pool_k; ++pw)
-        m = fmaxf(m, t[ph * a.conv_tw + pw]);
-    yn[((size_t)co * a.Po + oh) * a.Pw + ow] = from_f<T>(m);
+  T* yn = y + ((size_t)n * a.Cout + (size_t)g * a.cout_pg + co0) * plane;
+  for (int col = warp; col < BN && co0 + col < a.cout_pg; col += 4) {
+    const float* t = ot + col * EPI_PITCH;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (dst[q] < 0) continue;
+      float v;
+      if (!a.pool_k) {
+        v = t[win[q]];
+      } else {
+        v = -INFINITY;
+        for (int ph = 0; ph < a.pool_k; ++ph)
+          for (int pw = 0; pw < a.pool_k; ++pw)
+            v = fmaxf(v, t[win[q] + ph * a.conv_tw + pw]);
+      }
+      yn[(size_t)col * plane + dst[q]] = from_f<T>(v);
+    }
   }
 }
 
-// One thread per output element (pooled when a pool is fused; each pool
-// window's conv values are recomputed, which the stencil's low arithmetic
-// cost allows).  Channel c reads input channel c: multiplier 1 only.
-template <typename T>
-__device__ __forceinline__ float dw_point(const T* __restrict__ xc,
-                                          const float* wk, float b, int r,
-                                          int col, const ConvArgs& a) {
-  float acc = 0.f;
-  const int ih0 = r * a.stride - a.pad, iw0 = col * a.stride - a.pad;
-  for (int kh = 0; kh < a.K; ++kh) {
-    const int ih = ih0 + kh;
-    for (int kw = 0; kw < a.K; ++kw) {
-      const int iw = iw0 + kw;
-      const float v = (ih >= 0 && ih < a.H && iw >= 0 && iw < a.W)
-                          ? to_f(__ldg(xc + (size_t)ih * a.W + iw)) : 0.f;
-      acc = fmaf(wk[kh * a.K + kw], v, acc);
-    }
-  }
-  return activate(acc + b, a.act);
-}
-
-template <typename T>
+// One CTA: a conv tile of cb channels of image n.  KT, ST: the compiled
+// kernel size and stride (0: read from the arguments).
+template <typename T, int KT, int ST>
 __global__ void __launch_bounds__(DW_THREADS)
 conv2d_depthwise_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         const float* __restrict__ bias, T* __restrict__ y,
                         ConvArgs a) {
-  const size_t total = (size_t)a.N * a.Cout * a.Po * a.Pw;
-  const size_t i = (size_t)blockIdx.x * DW_THREADS + threadIdx.x;
-  if (i >= total) return;
-  const int ow = (int)(i % a.Pw);
-  const int oh = (int)((i / a.Pw) % a.Po);
-  const size_t nc = i / ((size_t)a.Pw * a.Po);
-  const int c = (int)(nc % a.Cout);
-  const T* xc = x + nc * a.H * a.W;
-  float wk[49];                        // K <= 7, checked by the wrapper
-  for (int k = 0; k < a.K * a.K; ++k) wk[k] = to_f(w[(size_t)c * a.K * a.K + k]);
-  const float b = bias != nullptr ? bias[c] : 0.f;
-  float out;
-  if (!a.pool_k) {
-    out = dw_point(xc, wk, b, oh, ow, a);
-  } else {
-    out = -INFINITY;
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  float* xs = reinterpret_cast<float*>(dw_smem);
+  float* ws = reinterpret_cast<float*>(dw_smem + a.off_w);
+  float* ct = reinterpret_cast<float*>(dw_smem + a.off_ct);
+  const int K = KT ? KT : a.K, S = ST ? ST : a.stride, KK = K * K;
+  const int tid = threadIdx.x;
+  const int th_i = blockIdx.x / a.tiles_w, tw_i = blockIdx.x % a.tiles_w;
+  const int c0 = blockIdx.y * a.cb;
+  const int nc = min(a.cb, a.Cout - c0);
+  const int n = blockIdx.z;
+  const int ps = a.pool_k ? a.pool_s : 1;
+  const int oh0 = th_i * a.tile_oh, ow0 = tw_i * a.tile_ow;
+  const int ih0 = oh0 * ps * S - a.pad, iw0 = ow0 * ps * S - a.pad;
+  const size_t hw = (size_t)a.H * a.W;
+  const T* xn = x + ((size_t)n * a.Cout + c0) * hw;
+
+  // stage each channel's haloed input tile once, as fp32, zero outside
+  // (divisions by multiply-shift: the planner's magic numbers)
+  const int in_plane = a.in_th * a.in_tw;
+  const uint32_t mp = a.magic, mw = a.magic_w;
+  constexpr int U = 4;                // bf16: loads in flight per thread
+  for (int i0 = tid; i0 < nc * in_plane; i0 += U * DW_THREADS) {
+    float v[U];
+    float* d[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * DW_THREADS;
+      const int cl = in_plane == 1 ? i : __umulhi(i, mp);
+      const int e = i - cl * in_plane;
+      const int r = a.in_tw == 1 ? e : __umulhi(e, mw);
+      const int c = e - r * a.in_tw;
+      const int ih = ih0 + r, iw = iw0 + c;
+      const bool ok = i < nc * in_plane && ih >= 0 && ih < a.H && iw >= 0
+                      && iw < a.W;
+      const T* src = xn + cl * hw + (ok ? (size_t)ih * a.W + iw : 0);
+      d[u] = i < nc * in_plane ? xs + (cl * a.in_th + r) * a.pitch_w + c
+                               : nullptr;
+      if constexpr (sizeof(T) == 4) {
+        if (d[u] != nullptr) cp_async4(d[u], src, ok);
+      } else {
+        v[u] = ok ? to_f(src[0]) : 0.f;
+      }
+    }
+    if constexpr (sizeof(T) != 4) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (d[u] != nullptr) *d[u] = v[u];
+    }
+  }
+  for (int i = tid; i < nc * KK; i += DW_THREADS)
+    ws[i] = to_f(w[(size_t)c0 * KK + i]);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int nstrip = (a.conv_tw + DW_VEC - 1) / DW_VEC;
+  const int per_ch = a.conv_th * nstrip;
+  T* yn = y + ((size_t)n * a.Cout + c0) * a.Po * a.Pw;
+  for (int it = tid; it < nc * per_ch; it += DW_THREADS) {
+    const int cl = per_ch == 1 ? it : __umulhi(it, a.magic_pc);
+    const int rem = it - cl * per_ch;
+    const int r = nstrip == 1 ? rem : __umulhi(rem, a.magic_ns);
+    const int sc = rem - r * nstrip;
+    const float* xr = xs + (cl * a.in_th + r * S) * a.pitch_w
+                      + sc * DW_VEC * S;
+    const float* wk = ws + cl * KK;
+    const float b = bias != nullptr ? bias[c0 + cl] : 0.f;
+    float acc[DW_VEC];
+#pragma unroll
+    for (int v = 0; v < DW_VEC; ++v) acc[v] = 0.f;
+    if constexpr (KT != 0) {
+      constexpr int WIN = (DW_VEC - 1) * ST + KT;
+      constexpr int WIN4 = (WIN + 3) / 4;
+      float wr[KT * KT];
+#pragma unroll
+      for (int k = 0; k < KT * KT; ++k) wr[k] = wk[k];
+#pragma unroll
+      for (int kh = 0; kh < KT; ++kh) {
+        float xv[WIN4 * 4];
+        const float4* row = reinterpret_cast<const float4*>(
+            xr + kh * a.pitch_w);
+#pragma unroll
+        for (int q = 0; q < WIN4; ++q) {
+          const float4 f = row[q];
+          xv[4 * q] = f.x; xv[4 * q + 1] = f.y;
+          xv[4 * q + 2] = f.z; xv[4 * q + 3] = f.w;
+        }
+#pragma unroll
+        for (int kw = 0; kw < KT; ++kw)
+#pragma unroll
+          for (int v = 0; v < DW_VEC; ++v)
+            acc[v] = fmaf(wr[kh * KT + kw], xv[v * ST + kw], acc[v]);
+      }
+    } else {
+      for (int kh = 0; kh < K; ++kh)
+        for (int kw = 0; kw < K; ++kw) {
+          const float wv = wk[kh * K + kw];
+#pragma unroll
+          for (int v = 0; v < DW_VEC; ++v)
+            acc[v] = fmaf(wv, xr[kh * a.pitch_w + v * S + kw], acc[v]);
+        }
+    }
+    const int cc0 = sc * DW_VEC;
+    if (a.pool_k) {
+      float* t = ct + (cl * a.conv_th + r) * a.conv_tw;
+#pragma unroll
+      for (int v = 0; v < DW_VEC; ++v)
+        if (cc0 + v < a.conv_tw) t[cc0 + v] = activate(acc[v] + b, a.act);
+      continue;
+    }
+    const int oh = oh0 + r, ow = ow0 + cc0;
+    if (oh >= a.Po) continue;
+    T* dst = yn + ((size_t)cl * a.Po + oh) * a.Pw + ow;
+    T o[DW_VEC];
+#pragma unroll
+    for (int v = 0; v < DW_VEC; ++v) o[v] = from_f<T>(activate(acc[v] + b,
+                                                                a.act));
+    const bool whole = cc0 + DW_VEC <= a.conv_tw && ow + DW_VEC <= a.Pw;
+    if (whole && reinterpret_cast<uintptr_t>(dst) % (DW_VEC * sizeof(T))
+                     == 0) {
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+      else
+        *reinterpret_cast<uint2*>(dst) = make_uint2(
+            __bfloat16_as_ushort(o[0]) | (__bfloat16_as_ushort(o[1]) << 16),
+            __bfloat16_as_ushort(o[2]) | (__bfloat16_as_ushort(o[3]) << 16));
+    } else {
+#pragma unroll
+      for (int v = 0; v < DW_VEC; ++v)
+        if (cc0 + v < a.conv_tw && ow + v < a.Pw) dst[v] = o[v];
+    }
+  }
+  if (!a.pool_k) return;
+  // fused maxpool from the activated conv tile
+  __syncthreads();
+  const int tile_np = a.tile_oh * a.tile_ow;
+  for (int i = tid; i < nc * tile_np; i += DW_THREADS) {
+    const int cl = i / tile_np, rem = i - cl * tile_np;
+    const int pr = rem / a.tile_ow, pc = rem - pr * a.tile_ow;
+    const int oh = oh0 + pr, ow = ow0 + pc;
+    if (oh >= a.Po || ow >= a.Pw) continue;
+    const float* t = ct + (cl * a.conv_th + pr * ps) * a.conv_tw + pc * ps;
+    float mx = -INFINITY;
     for (int ph = 0; ph < a.pool_k; ++ph)
       for (int pw = 0; pw < a.pool_k; ++pw)
-        out = fmaxf(out, dw_point(xc, wk, b, oh * a.pool_s + ph,
-                                  ow * a.pool_s + pw, a));
+        mx = fmaxf(mx, t[ph * a.conv_tw + pw]);
+    yn[((size_t)cl * a.Po + oh) * a.Pw + ow] = from_f<T>(mx);
   }
-  y[i] = from_f<T>(out);
 }
 
-template <typename T, int COT, int PT, int KT>
-cudaError_t launch_dense_k(const T* x, const T* w, const float* b, T* y,
-                           const ConvArgs& a, int smem, cudaStream_t stream) {
-  // raise the kernel's dynamic shared-memory cap once per new high-water
+template <typename K>
+cudaError_t raise_smem_cap(K kernel, int smem, int& cap) {
+  // raise a kernel's dynamic shared-memory cap once per new high-water
   // mark (not on every launch: a launch may be under CUDA-graph capture)
-  static int smem_cap = 48 * 1024;
-  if (smem > smem_cap) {
-    cudaError_t err = cudaFuncSetAttribute(
-        conv2d_dense_kernel<T, COT, PT, KT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_cap = smem;
-  }
+  if (smem <= cap) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) cap = smem;
+  return err;
+}
+
+template <typename T, int BN>
+cudaError_t launch_dense(const T* x, const T* w, const float* b, T* y,
+                         const ConvArgs& a, cudaStream_t stream) {
+  static int cap = 48 * 1024;
+  cudaError_t err = raise_smem_cap(conv2d_dense_kernel<T, BN>, a.smem, cap);
+  if (err != cudaSuccess) return err;
   dim3 grid(a.tiles_h * a.tiles_w, a.groups * a.co_blocks, a.N);
-  conv2d_dense_kernel<T, COT, PT, KT><<<grid, THREADS, smem, stream>>>(
+  conv2d_dense_kernel<T, BN><<<grid, THREADS, a.smem, stream>>>(x, w, b, y,
+                                                                a);
+  return cudaGetLastError();
+}
+
+template <typename T, int KT, int ST>
+cudaError_t launch_dw(const T* x, const T* w, const float* b, T* y,
+                      const ConvArgs& a, cudaStream_t stream) {
+  dim3 grid(a.tiles_h * a.tiles_w, a.co_blocks, a.N);
+  conv2d_depthwise_kernel<T, KT, ST><<<grid, DW_THREADS, a.smem, stream>>>(
       x, w, b, y, a);
   return cudaGetLastError();
 }
 
-template <typename T, int COT, int PT>
-cudaError_t launch_dense(const T* x, const T* w, const float* b, T* y,
-                         const ConvArgs& a, int smem, cudaStream_t stream) {
-  if (a.K == 1)
-    return launch_dense_k<T, COT, PT, 1>(x, w, b, y, a, smem, stream);
-  if (a.K == 3)
-    return launch_dense_k<T, COT, PT, 3>(x, w, b, y, a, smem, stream);
-  return launch_dense_k<T, COT, PT, 0>(x, w, b, y, a, smem, stream);
-}
-
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* b, void* y,
-                   const ConvArgs& a, const int* p, cudaStream_t stream) {
+                   ConvArgs a, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const float* bt = static_cast<const float*>(b);
   T* yt = static_cast<T*>(y);
-  if (p[P_DEPTHWISE]) {
-    const size_t total = (size_t)a.N * a.Cout * a.Po * a.Pw;
-    const unsigned blocks = (unsigned)((total + DW_THREADS - 1) / DW_THREADS);
-    conv2d_depthwise_kernel<T><<<blocks, DW_THREADS, 0, stream>>>(
-        xt, wt, bt, yt, a);
-    return cudaGetLastError();
+  if (a.depthwise) {
+    if (a.kt == 3 && a.stride == 1)
+      return launch_dw<T, 3, 1>(xt, wt, bt, yt, a, stream);
+    if (a.kt == 3 && a.stride == 2)
+      return launch_dw<T, 3, 2>(xt, wt, bt, yt, a, stream);
+    return launch_dw<T, 0, 0>(xt, wt, bt, yt, a, stream);
   }
-  const int smem = p[P_SMEM];
-  // the (COT, PT) blockings the planner may pick
-  switch (p[P_COT] * 10 + p[P_PT]) {
-    case 82: return launch_dense<T, 8, 2>(xt, wt, bt, yt, a, smem, stream);
-    case 81: return launch_dense<T, 8, 1>(xt, wt, bt, yt, a, smem, stream);
-    case 41: return launch_dense<T, 4, 1>(xt, wt, bt, yt, a, smem, stream);
-    case 21: return launch_dense<T, 2, 1>(xt, wt, bt, yt, a, smem, stream);
+  // the 16-byte copies need 16-byte aligned tensors (a batch slice of an
+  // aligned tensor may not be)
+  if (reinterpret_cast<uintptr_t>(x) % (a.vec_x == 3 ? 8 : 16)) a.vec_x = 0;
+  if (reinterpret_cast<uintptr_t>(w) % 16) a.vec_b = 0;
+  switch (a.bn) {
+    case 64: return launch_dense<T, 64>(xt, wt, bt, yt, a, stream);
+    case 32: return launch_dense<T, 32>(xt, wt, bt, yt, a, stream);
+    case 16: return launch_dense<T, 16>(xt, wt, bt, yt, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -390,19 +1001,10 @@ extern "C" {
 int conv2d_launch(const void* x, const void* w, const void* bias, void* y,
                   const int* p, void* stream) {
   ConvArgs a;
-  a.N = p[P_N]; a.Cin = p[P_CIN]; a.H = p[P_H]; a.W = p[P_W];
-  a.Cout = p[P_COUT]; a.cin_pg = p[P_CIN_PG]; a.cout_pg = p[P_COUT_PG];
-  a.K = p[P_K]; a.stride = p[P_STRIDE]; a.pad = p[P_PAD]; a.act = p[P_ACT];
-  a.pool_k = p[P_POOL_K]; a.pool_s = p[P_POOL_S]; a.Po = p[P_PO];
-  a.Pw = p[P_PW]; a.tile_oh = p[P_TILE_OH]; a.tile_ow = p[P_TILE_OW];
-  a.conv_th = p[P_CONV_TH]; a.conv_tw = p[P_CONV_TW]; a.in_th = p[P_IN_TH];
-  a.in_tw = p[P_IN_TW]; a.ci_chunk = p[P_CI_CHUNK]; a.tiles_h = p[P_TILES_H];
-  a.tiles_w = p[P_TILES_W]; a.co_blocks = p[P_CO_BLOCKS];
-  a.groups = p[P_GROUPS];
+  memcpy(&a, p, sizeof(a));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p[P_DTYPE] == 1)
-    return (int)launch<__nv_bfloat16>(x, w, bias, y, a, p, s);
-  return (int)launch<float>(x, w, bias, y, a, p, s);
+  if (a.dtype == 1) return (int)launch<__nv_bfloat16>(x, w, bias, y, a, s);
+  return (int)launch<float>(x, w, bias, y, a, s);
 }
 
 const char* kernels_error_string(int err) {

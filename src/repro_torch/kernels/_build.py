@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,17 +31,23 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
+def tool_path(tool: str = "nvcc") -> str:
+    """A CUDA toolkit program (nvcc, cuobjdump), on PATH or under
+    CUDA_HOME."""
+    found = shutil.which(tool)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
+    path = Path(home) / "bin" / tool
     if not path.exists():
         raise RuntimeError(
-            "nvcc not found on PATH or under CUDA_HOME: the CUDA kernels "
-            "build only where the CUDA toolkit is installed")
+            f"{tool} not found on PATH or under CUDA_HOME: the CUDA kernels "
+            f"build only where the CUDA toolkit is installed")
     return str(path)
+
+
+def nvcc_path() -> str:
+    return tool_path("nvcc")
 
 
 def _target(name: str) -> Path:
@@ -84,6 +91,57 @@ def build_all(names=SOURCES) -> dict[str, str]:
         if errors:
             raise RuntimeError("\n".join(errors))
         return logs
+
+
+def kernel_label(mangled: str) -> str:
+    """``conv2d_dense_kernel<fp32,64>`` for a mangled conv kernel name
+    (the dtype and the integer template arguments), else the name."""
+    m = re.search(r"(conv2d_[a-z]+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)",
+                  mangled)
+    if not m:
+        return mangled
+    args = ["fp32" if m.group(2) == "f" else "bf16",
+            *re.findall(r"Li(\d+)E", m.group(3))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: registers, stack frame
+    and spill bytes."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+def sass_report(lib: Path) -> dict[str, dict]:
+    """Per kernel of a built library (``cuobjdump -sass``): its SASS
+    instructions and how many are tensor-core ``HGMMA``s."""
+    text = subprocess.run([tool_path("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)),
+                                 dict(instructions=0, hgmma=0))
+        elif cur is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            cur["instructions"] += 1
+            cur["hgmma"] += "HGMMA" in line
+    return out
 
 
 def library(name: str, signatures: dict) -> ctypes.CDLL:

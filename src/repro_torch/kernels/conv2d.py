@@ -24,25 +24,45 @@ import torch
 from repro_torch.kernels import _build, launches
 from repro_torch.kernels.ref import ACTIVATIONS, conv2d_plain
 
-# Thread layout of conv2d_dense_kernel (csrc/conv2d.cu): TP pixel lanes x
-# TC channel lanes, each thread PT conv-tile pixels x COT output channels,
-# so a CTA covers TC * COT channels and up to TP * PT pixels.  BLOCKINGS
-# are the (COT, PT) the kernel is instantiated for, most outputs per
-# thread first; the planner takes the first that gives TARGET_CTAS CTAs,
-# else the one giving the most.  Both were set from
-# scripts/conv_blocking_sweep.py on an H100 (every blocking timed at every
-# dense conv of the served AlexNet and MobileNetV2): this rule came within
-# 7% of the per-shape best over those shapes.
-TP, TC = 64, 4
-THREADS = TP * TC
-BLOCKINGS = ((8, 2), (8, 1), (4, 1), (2, 1))
-TARGET_CTAS = 200
-MAX_TILE_W = 32                   # conv-tile columns per CTA
-DW_THREADS = 256
-DW_MAX_K = 7                      # the depthwise kernel's weight registers
-STAGING_BUDGET = 64 * 1024        # shared bytes a CTA aims to stage
+# Dense kernel (csrc/conv2d.cu::conv2d_dense_kernel): an implicit GEMM on
+# wgmma.  One warpgroup (THREADS) per CTA computes a BM-row tile of conv
+# pixels (one rectangular conv tile of one image) by BN output channels of
+# one group.  K runs over the flat (ci, kh, kw) taps in k-steps of KSTEP
+# (the wgmma depth: 8 tf32 or 16 bf16 values) and stages of BK taps, in
+# a ring of ``nstage`` shared-memory slots (nstage - 1 stages in flight
+# while one is multiplied).  The planner picks BN: the widest of BNS that
+# gives TARGET_CTAS CTAs (per dtype), else the one giving the most; then
+# the deepest ring of NSTAGES, at most stages + 1 deep, within the shared
+# bytes RING_BUDGET leaves each CTA (how many CTAs share an SM), else the
+# deepest that fits.  TARGET_CTAS, BNS and RING_BUDGET come from
+# scripts/conv_blocking_sweep.py on an H100.
+BM = 64
+THREADS = 128
+BNS = (64, 32, 16)
+TARGET_CTAS = {0: 396, 1: 264}    # by dtype code
+NSTAGES = (4, 3, 2)
+BK = 64                           # taps per stage, both dtypes
+KSTEP = {0: 8, 1: 16}             # taps per k-step, by dtype code
+ESIZE = {0: 4, 1: 2}
+MAX_TILE_W = 64                   # conv-tile columns per CTA
+EPI_PITCH = 68                    # floats per channel row of the epilogue tile
 SMEM_MAX = 227 * 1024             # the H100's per-block limit
+RING_BUDGET = 75 * 1024           # three CTAs' worth of an SM's 228 KB
 GRID_YZ_MAX = 65535
+MAGIC_LIMIT = 1 << 16             # __umulhi division is exact below this
+
+# Depthwise kernel (conv2d_depthwise_kernel): a shared-memory stencil.
+# One CTA per (spatial tile, block of DW channels, image); each thread
+# computes strips of DW_VEC outputs along a row.  K=3 at stride 1 or 2 is
+# compiled for its shape (weights and window in registers); any other
+# K <= DW_MAX_K takes the generic path.
+DW_THREADS = 256
+DW_VEC = 4
+DW_MAX_K = 7
+DW_TILE_H, DW_TILE_W = 16, 32     # conv-tile rows and columns per CTA
+DW_ITEMS = 512                    # strips a CTA aims to hold
+DW_TARGET_CTAS = 264
+DW_SMEM_MAX = 48 * 1024
 
 _ACT_CODE = {None: 0, "relu": 1, "relu6": 2}
 _SIGNATURES = {"conv2d_launch": (
@@ -51,19 +71,28 @@ _SIGNATURES = {"conv2d_launch": (
 # order of the int array conv2d_launch reads (enum Param in conv2d.cu)
 _PARAM_FIELDS = (
     "N", "Cin", "H", "W", "Cout", "cin_pg", "cout_pg", "K", "stride", "pad",
-    "act", "pool_k", "pool_s", "Po", "Pw", "tile_oh", "tile_ow", "conv_th",
-    "conv_tw", "in_th", "in_tw", "ci_chunk", "tiles_h", "tiles_w",
-    "co_blocks", "groups", "smem", "dtype", "depthwise", "cot", "pt")
+    "act", "pool_k", "pool_s", "Ho", "Wo", "Po", "Pw", "groups", "dtype",
+    "depthwise", "tile_oh", "tile_ow", "conv_th", "conv_tw", "in_th", "in_tw",
+    "tiles_h", "tiles_w", "co_blocks", "smem", "bn", "ktot", "bk", "stages",
+    "nstage", "chmax", "pitch", "magic", "vec_x", "vec_b", "slot", "off_b",
+    "off_bs", "off_tab", "off_px", "off_toff", "kq", "kr", "ci_last", "cb",
+    "kt", "pitch_w", "off_w", "off_ct", "magic_w", "magic_pc", "magic_ns")
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvGeometry:
-    """One launch: shapes, tiles, chunking, grid and shared memory.
+    """One launch: shapes, tiles, the K decomposition, grid and shared
+    memory.
 
     Tiles are in final-output units (pooled when a pool is fused);
     ``conv_th x conv_tw`` is the conv tile a CTA computes and ``in_th x
-    in_tw`` the haloed input tile it stages.  Depthwise launches use one
-    thread per output element and no tiles."""
+    in_tw`` the haloed input tile it stages.  Dense launches: ``bn``
+    output channels a CTA, K = ``ktot`` taps in ``stages`` stages of
+    ``bk`` through a ring of ``nstage`` slots, each stage's input
+    channels in ``chmax`` planes of ``pitch`` elements; byte offsets
+    inside a slot.  Depthwise launches:
+    ``cb`` channels a CTA, ``kt`` the compiled K (0: generic), rows of
+    ``pitch_w`` floats."""
 
     N: int
     Cin: int
@@ -82,36 +111,51 @@ class ConvGeometry:
     Wo: int
     Po: int
     Pw: int
+    groups: int
+    dtype: int
+    depthwise: int
     tile_oh: int
     tile_ow: int
     conv_th: int
     conv_tw: int
     in_th: int
     in_tw: int
-    ci_chunk: int
     tiles_h: int
     tiles_w: int
     co_blocks: int
-    groups: int
     smem: int
-    dtype: int
-    depthwise: int
-    cot: int = 0                  # output channels per thread (dense)
-    pt: int = 0                   # conv-tile pixels per thread (dense)
-
-    @property
-    def co_blk(self) -> int:
-        return TC * self.cot
-
-    @property
-    def max_pix(self) -> int:
-        return TP * self.pt
+    bn: int = 0
+    ktot: int = 0
+    bk: int = 0
+    stages: int = 0
+    nstage: int = 0
+    chmax: int = 0
+    pitch: int = 0
+    magic: int = 0
+    vec_x: int = 0
+    vec_b: int = 0
+    slot: int = 0
+    off_b: int = 0
+    off_bs: int = 0
+    off_tab: int = 0
+    off_px: int = 0
+    off_toff: int = 0
+    kq: int = 0
+    kr: int = 0
+    ci_last: int = 0
+    cb: int = 0
+    kt: int = 0
+    pitch_w: int = 0
+    off_w: int = 0
+    off_ct: int = 0
+    magic_w: int = 0
+    magic_pc: int = 0
+    magic_ns: int = 0
 
     @property
     def grid(self) -> tuple[int, int, int]:
         if self.depthwise:
-            total = self.N * self.Cout * self.Po * self.Pw
-            return (-(-total // DW_THREADS), 1, 1)
+            return (self.tiles_h * self.tiles_w, self.co_blocks, self.N)
         return (self.tiles_h * self.tiles_w, self.groups * self.co_blocks,
                 self.N)
 
@@ -123,6 +167,10 @@ class ConvGeometry:
     @property
     def threads(self) -> int:
         return DW_THREADS if self.depthwise else THREADS
+
+    @property
+    def in_plane(self) -> int:
+        return self.in_th * self.in_tw
 
     def params(self) -> list[int]:
         return [int(getattr(self, f)) for f in _PARAM_FIELDS]
@@ -136,8 +184,95 @@ class ConvGeometry:
         return (ctypes.c_int * len(values))(*values)
 
 
+@dataclasses.dataclass(frozen=True)
+class KDecomposition:
+    """How the dense kernel walks K = cin_pg * K * K taps.  A function of
+    the weight shape and the storage dtype alone: never of batch, tile,
+    BN, ring depth or pool fusion, so every launch of one weight sums
+    each output in the same k-steps.  Stage ``s`` holds taps [s * bk,
+    (s+1) * bk), whole k-steps; taps past ``ktot`` are zeros (the kernel
+    runs every stage whole, so its last stage's k-steps past ``kpad`` add
+    exact zeros).  One segment: there is no split-K."""
+
+    ktot: int
+    kstep: int
+    kpad: int
+    bk: int
+    stages: int
+    kk: int
+    cin_pg: int
+
+    def stage_taps(self, s: int) -> tuple[int, int]:
+        return s * self.bk, min((s + 1) * self.bk, self.kpad)
+
+    def stage_channels(self, s: int) -> tuple[int, int]:
+        """[c_lo, c_hi): the input channels stage ``s``'s real taps read."""
+        k0, k1 = self.stage_taps(s)
+        return k0 // self.kk, (min(k1, self.ktot) - 1) // self.kk + 1
+
+    @property
+    def kstep_bounds(self) -> tuple[int, ...]:
+        return tuple(range(0, self.kpad + 1, self.kstep))
+
+    @property
+    def segments(self) -> tuple[tuple[int, int], ...]:
+        return ((0, self.kpad),)
+
+
+def k_decomposition(cin_pg: int, K: int, dtype_code: int) -> KDecomposition:
+    kk = K * K
+    ktot = cin_pg * kk
+    kstep = KSTEP[dtype_code]
+    kpad = -(-ktot // kstep) * kstep
+    return KDecomposition(ktot=ktot, kstep=kstep, kpad=kpad, bk=BK,
+                          stages=-(-kpad // BK), kk=kk, cin_pg=cin_pg)
+
+
 def _out(n: int, k: int, s: int, p: int) -> int:
     return (n + 2 * p - k) // s + 1
+
+
+def _align(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def plane_pitch(n: int, esize: int) -> int:
+    """Elements per staged input plane: at least ``n``, and 32 bytes past
+    a multiple of 128, so the 4 taps a warp's lanes read in one k-step
+    (4 planes apart in a pointwise conv) fall in distinct banks."""
+    unit, off = 128 // esize, 32 // esize
+    return n + (off - n) % unit
+
+
+def magic_div(d: int) -> int:
+    """The multiplier m with ``__umulhi(i, m) == i // d`` for i, d < 2^16
+    (m = ceil(2^32 / d)), as a signed 32-bit int; 0 for d = 1."""
+    if d == 1:
+        return 0
+    m = -(-(1 << 32) // d)
+    return m - (1 << 32) if m >= 1 << 31 else m
+
+
+def _conv_tile(common: dict, max_pix: int, max_w: int, max_h: int):
+    """(tile_oh, tile_ow, conv_th, conv_tw) in final-output and conv units;
+    None when a pool window does not fit."""
+    pool_k, pool_s = common["pool_k"], common["pool_s"]
+    Po, Pw, Ho, Wo = common["Po"], common["Pw"], common["Ho"], common["Wo"]
+    if pool_k:
+        width = min(max_w, max_pix // pool_k)
+        if width < pool_k:
+            return None
+        tile_ow = min(Pw, (width - pool_k) // pool_s + 1)
+        conv_tw = (tile_ow - 1) * pool_s + pool_k
+        rows = min(max_h, max_pix // conv_tw)
+        if rows < pool_k:
+            return None
+        tile_oh = min(Po, (rows - pool_k) // pool_s + 1)
+        conv_th = (tile_oh - 1) * pool_s + pool_k
+    else:
+        tile_ow = conv_tw = min(Wo, max_w)
+        tile_oh = conv_th = min(Ho, max_pix // tile_ow, max_h)
+    return tile_oh, tile_ow, conv_th, conv_tw
 
 
 @functools.lru_cache(maxsize=4096)
@@ -180,65 +315,129 @@ def plan_conv(x_shape, w_shape, *, stride: int = 1, pad: int = 0,
         if K > DW_MAX_K:
             raise ValueError(f"depthwise kernel takes K <= {DW_MAX_K}, "
                              f"got {K}")
-        return ConvGeometry(
-            **common, tile_oh=0, tile_ow=0, conv_th=0, conv_tw=0, in_th=0,
-            in_tw=0, ci_chunk=1, tiles_h=0, tiles_w=0, co_blocks=Cout,
-            smem=0, depthwise=1)
-    cands = [g for g in (_dense_geometry(common, cot, pt)
-                         for cot, pt in BLOCKINGS) if g is not None]
+        g = _depthwise_geometry(common)
+        if g is None:
+            raise ValueError(f"no tiling of the depthwise kernel takes "
+                             f"pool={pool_k}/{pool_s} from {H}x{W}")
+        return g
+    cands = [g for g in map(functools.partial(_dense_geometry, common), BNS)
+             if g is not None]
     if not cands:
         raise ValueError(f"no tiling of the dense kernel takes K={K} "
                          f"pool={pool_k}/{pool_s} from {H}x{W}")
     for g in cands:
-        if g.ctas >= TARGET_CTAS:
+        if g.ctas >= TARGET_CTAS[common["dtype"]]:
             return g
-    # too few outputs to fill the card: the most CTAs, then the fewest
-    # idle accumulator slots
-    return max(cands, key=lambda g: (
-        g.ctas, N * Cout * Ho * Wo / (g.ctas * THREADS * g.cot * g.pt)))
+    return max(cands, key=lambda g: (g.ctas, g.bn))
 
 
-def staged_bytes(ci_chunk: int, in_plane: int, co_blk: int, K: int) -> int:
-    """Shared bytes of one staged chunk: the input tiles, then (from a
-    16-byte boundary) the weight slice."""
-    return 4 * (-(-ci_chunk * in_plane // 4) * 4 + ci_chunk * co_blk * K * K)
-
-
-def _dense_geometry(common: dict, cot: int, pt: int) -> ConvGeometry | None:
-    """Tiles, chunking and shared memory of the dense kernel at one
-    blocking; None when the blocking cannot hold a pool window."""
-    K, stride = common["K"], common["stride"]
-    pool_k, pool_s = common["pool_k"], common["pool_s"]
-    Po, Pw, Ho, Wo = common["Po"], common["Pw"], common["Ho"], common["Wo"]
-    co_blk, max_pix = TC * cot, TP * pt
-    if pool_k:
-        width = min(MAX_TILE_W, max_pix // pool_k)
-        if width < pool_k:
-            return None
-        tile_ow = min(Pw, (width - pool_k) // pool_s + 1)
-        conv_tw = (tile_ow - 1) * pool_s + pool_k
-        rows = max_pix // conv_tw
-        tile_oh = min(Po, (rows - pool_k) // pool_s + 1)
-        conv_th = (tile_oh - 1) * pool_s + pool_k
-    else:
-        tile_ow = conv_tw = min(Wo, MAX_TILE_W)
-        tile_oh = conv_th = min(Ho, max_pix // tile_ow)
+def _dense_geometry(common: dict, bn: int) -> ConvGeometry | None:
+    """Tiles, K decomposition and shared memory of the dense kernel at one
+    channel block; None when it does not fit."""
+    K, stride, dt = common["K"], common["stride"], common["dtype"]
+    tile = _conv_tile(common, BM, MAX_TILE_W, BM)
+    if tile is None:
+        return None
+    tile_oh, tile_ow, conv_th, conv_tw = tile
     in_th = (conv_th - 1) * stride + K
     in_tw = (conv_tw - 1) * stride + K
-    per_ci = 4 * (in_th * in_tw + co_blk * K * K)
-    ci_chunk = max(1, min(common["cin_pg"], STAGING_BUDGET // per_ci))
-    pool_bytes = 4 * co_blk * conv_th * conv_tw if pool_k else 0
-    smem = max(staged_bytes(ci_chunk, in_th * in_tw, co_blk, K), pool_bytes)
-    if smem > SMEM_MAX:
+    in_plane = in_th * in_tw
+    kd = k_decomposition(common["cin_pg"], K, dt)
+    chmax = max(c1 - c0 for c0, c1 in map(kd.stage_channels,
+                                            range(kd.stages)))
+    es = ESIZE[dt]
+    elems = 16 // es              # elements of one 16-byte copy
+    H, W = common["H"], common["W"]
+    pointwise = K == 1 and stride == 1 and common["pad"] == 0
+    # whole images: a stage's planes are one run in memory, kept as one
+    # run in the slot (2); whole rows: each plane's part is one run, in
+    # 16-byte copies (1) or, where only 8-byte aligned, 8-byte ones (3)
+    if (pointwise and not common["pool_k"] and conv_th == H and conv_tw == W
+            and (common["cin_pg"] * H * W) % elems == 0
+            and (common["Cin"] * H * W) % elems == 0):
+        vec_x, pitch = 2, in_plane
+    else:
+        pitch = plane_pitch(in_plane, es)
+        vec_x = 0
+        for mode, n in ((1, elems), (3, 8 // es)):
+            if (n and pointwise and conv_tw == W and (conv_th * W) % n == 0
+                    and (H * W) % n == 0 and pitch % n == 0):
+                vec_x = mode
+                break
+    # the staging loops divide indices up to a slot's planes plus one
+    # unrolled pass of the threads by multiply-shift
+    if chmax * pitch + 8 * THREADS >= MAGIC_LIMIT:
         return None
-    co_blocks = -(-common["cout_pg"] // co_blk)
+    x_bytes = _align(chmax * pitch * es, 128)
+    b_bytes = bn * BK * es
+    bs_bytes = bn * BK * 4 if dt == 0 else 0
+    slot = x_bytes + b_bytes + bs_bytes + BK * 4
+
+    tables = _align(in_plane * 4, 16) + _align(K * K * 4, 16)
+
+    def smem_of(n):
+        return max(n * slot + tables, bn * EPI_PITCH * 4)
+    # no deeper than the stages it can hold in flight
+    fits = [n for n in NSTAGES if smem_of(n) <= SMEM_MAX
+            and (n <= kd.stages + 1 or n == NSTAGES[-1])]
+    if not fits:
+        return None
+    nstage = next((n for n in fits if smem_of(n) <= RING_BUDGET), fits[0])
+    off_px, smem = nstage * slot, smem_of(nstage)
+    co_blocks = -(-common["cout_pg"] // bn)
     if common["groups"] * co_blocks > GRID_YZ_MAX:
         return None
+    vec_b = int(kd.ktot % elems == 0)
     return ConvGeometry(
         **common, tile_oh=tile_oh, tile_ow=tile_ow, conv_th=conv_th,
-        conv_tw=conv_tw, in_th=in_th, in_tw=in_tw, ci_chunk=ci_chunk,
-        tiles_h=-(-Po // tile_oh), tiles_w=-(-Pw // tile_ow),
-        co_blocks=co_blocks, smem=smem, depthwise=0, cot=cot, pt=pt)
+        conv_tw=conv_tw, in_th=in_th, in_tw=in_tw,
+        tiles_h=-(-common["Po"] // tile_oh),
+        tiles_w=-(-common["Pw"] // tile_ow), co_blocks=co_blocks, smem=smem,
+        depthwise=0, bn=bn, ktot=kd.ktot, bk=BK, stages=kd.stages,
+        nstage=nstage, chmax=chmax,
+        pitch=pitch, magic=magic_div(in_plane), vec_x=vec_x, vec_b=vec_b,
+        slot=slot, off_b=x_bytes, off_bs=x_bytes + b_bytes,
+        off_tab=x_bytes + b_bytes + bs_bytes, off_px=off_px,
+        off_toff=off_px + _align(in_plane * 4, 16), kq=BK // (K * K),
+        kr=BK % (K * K), ci_last=(kd.ktot - 1) // (K * K))
+
+
+def _depthwise_geometry(common: dict) -> ConvGeometry | None:
+    K, s, C, N = common["K"], common["stride"], common["Cout"], common["N"]
+    tile = _conv_tile(common, DW_TILE_H * DW_TILE_W, DW_TILE_W, DW_TILE_H)
+    if tile is None:
+        return None
+    tile_oh, tile_ow, conv_th, conv_tw = tile
+    in_th = (conv_th - 1) * s + K
+    in_tw = (conv_tw - 1) * s + K
+    kt = K if K == 3 and s in (1, 2) else 0
+    nstrip = -(-conv_tw // DW_VEC)
+    win = (DW_VEC - 1) * s + K
+    # the compiled path loads each strip's window as whole float4s
+    pitch_w = _align(max(in_tw, (nstrip - 1) * DW_VEC * s + _align(win, 4)),
+                     4)
+    per_ch = 4 * (in_th * pitch_w + K * K
+                  + (conv_th * conv_tw if common["pool_k"] else 0))
+    tiles = -(-common["Po"] // tile_oh) * -(-common["Pw"] // tile_ow)
+    cb = max(1, min(C, DW_ITEMS // (conv_th * nstrip),
+                    DW_SMEM_MAX // per_ch))
+    while cb > 1 and tiles * -(-C // cb) * N < DW_TARGET_CTAS:
+        cb = -(-cb // 2)
+    if cb * per_ch > DW_SMEM_MAX or \
+            cb * in_th * in_tw + 4 * DW_THREADS >= MAGIC_LIMIT:
+        return None
+    off_w = 4 * cb * in_th * pitch_w
+    off_ct = off_w + 4 * _align(cb * K * K, 4)
+    smem = off_ct + (4 * cb * conv_th * conv_tw if common["pool_k"] else 0)
+    return ConvGeometry(
+        **common, tile_oh=tile_oh, tile_ow=tile_ow, conv_th=conv_th,
+        conv_tw=conv_tw, in_th=in_th, in_tw=in_tw,
+        tiles_h=-(-common["Po"] // tile_oh),
+        tiles_w=-(-common["Pw"] // tile_ow), co_blocks=-(-C // cb),
+        smem=smem, depthwise=1, cb=cb, kt=kt, pitch_w=pitch_w, off_w=off_w,
+        off_ct=off_ct, magic=magic_div(in_th * in_tw),
+        magic_w=magic_div(in_tw), magic_pc=magic_div(conv_th * nstrip),
+        magic_ns=magic_div(nstrip))
 
 
 def _check_inputs(x, w, bias) -> None:

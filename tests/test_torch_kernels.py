@@ -6,9 +6,12 @@
   with remainder rows and columns: fp32 to 1e-4, bf16 to 2e-2 of scale.
 * The int8 codec against ``quantize_jnp`` / ``dequantize_jnp``, bitwise.
 * The CUDA launch geometry (``plan_conv``): on every conv of the main
-  path the tiles cover the output exactly and every shared-memory read
-  stays inside the staged tile; a CPU walk of the same tiles with torch
-  ops reproduces the conv.
+  path the tiles cover the output exactly, every shared-memory read stays
+  inside the staged tile, the stage ring fits in 227 KB, 16-byte copies
+  are chosen only where aligned, and the K decomposition is the same at
+  batch 1 and 4, fused and unfused; CPU walks of the dense kernel's CTAs
+  (im2col by the kernel's own index formulas, k-steps and segments in
+  order) and of the depthwise kernel's strips reproduce the conv.
 * The wrappers raise on what the kernels do not take."""
 import numpy as np
 import pytest
@@ -199,40 +202,122 @@ def _geometry(call, dtype=torch.float32):
                            dtype=dtype)
 
 
-def _check_geometry(g):
-    assert g.Po >= 1 and g.Pw >= 1
-    if g.depthwise:
-        assert g.grid[0] * g.threads >= g.N * g.Cout * g.Po * g.Pw
-        assert g.K <= kconv.DW_MAX_K
-        return
+E16 = {0: 4, 1: 8}                  # elements of a 16-byte copy
+
+
+def _check_tiles(g):
+    """Tiles cover the output exactly: none starts past the end, together
+    they reach it, and the conv tile feeds exactly its output tile."""
     ps = g.pool_s if g.pool_k else 1
     pk = g.pool_k or 1
-    # tiles cover the output exactly: no tile starts past the end, and
-    # together they reach it
+    assert g.Po >= 1 and g.Pw >= 1
     assert (g.tiles_h - 1) * g.tile_oh < g.Po <= g.tiles_h * g.tile_oh
     assert (g.tiles_w - 1) * g.tile_ow < g.Pw <= g.tiles_w * g.tile_ow
-    # the conv tile feeds exactly the output tile, pooled windows included
     assert g.conv_th == (g.tile_oh - 1) * ps + pk
     assert g.conv_tw == (g.tile_ow - 1) * ps + pk
-    assert (g.cot, g.pt) in kconv.BLOCKINGS
-    npix = g.conv_th * g.conv_tw
-    assert npix <= g.max_pix and g.conv_tw <= kconv.MAX_TILE_W
-    # every thread's shared-memory reads stay inside the staged tile
-    assert (g.conv_th - 1) * g.stride + g.K <= g.in_th
-    assert (g.conv_tw - 1) * g.stride + g.K <= g.in_tw
-    staged = kconv.staged_bytes(g.ci_chunk, g.in_th * g.in_tw, g.co_blk,
-                                g.K)
-    assert staged >= 4 * g.ci_chunk * (g.in_th * g.in_tw
-                                       + g.co_blk * g.K ** 2)
-    assert staged <= g.smem <= kconv.SMEM_MAX
+    assert g.in_th == (g.conv_th - 1) * g.stride + g.K
+    assert g.in_tw == (g.conv_tw - 1) * g.stride + g.K
     if g.pool_k:
-        assert 4 * g.co_blk * npix <= g.smem
         # a valid pooled output reads only valid conv outputs
         assert (g.Po - 1) * ps + pk <= g.Ho and (g.Pw - 1) * ps + pk <= g.Wo
-    assert 1 <= g.ci_chunk <= g.cin_pg
-    assert g.co_blocks * g.co_blk >= g.cout_pg
     assert g.grid[1] <= kconv.GRID_YZ_MAX and g.grid[2] <= kconv.GRID_YZ_MAX
     assert len(g.params()) == len(kconv._PARAM_FIELDS)
+
+
+def _check_dense(g):
+    _check_tiles(g)
+    es = kconv.ESIZE[g.dtype]
+    npix = g.conv_th * g.conv_tw
+    assert npix <= kconv.BM <= kconv.EPI_PITCH
+    assert g.conv_tw <= kconv.MAX_TILE_W and g.bn in kconv.BNS
+    assert g.co_blocks * g.bn >= g.cout_pg
+    kd = kconv.k_decomposition(g.cin_pg, g.K, g.dtype)
+    assert (g.ktot, g.bk, g.stages) == (kd.ktot, kd.bk, kd.stages)
+    assert kd.bk % kd.kstep == 0 and kd.kpad % kd.kstep == 0
+    assert kd.kpad - kd.ktot < kd.kstep <= kd.bk
+    assert (kd.stages - 1) * kd.bk < kd.kpad <= kd.stages * kd.bk
+    assert max(c1 - c0 for c0, c1 in map(kd.stage_channels,
+                                         range(kd.stages))) == g.chmax
+    # every shared-memory read stays inside the staged planes: the
+    # farthest window row/col plus the farthest tap of the last plane
+    assert g.in_plane <= g.pitch
+    if g.vec_x == 2:                 # whole images, planes back to back
+        assert g.pitch == g.in_plane == g.H * g.W
+    else:
+        assert (g.pitch * es) % 128 == 32
+    far_pix = (g.conv_th - 1) * g.stride * g.in_tw \
+        + (g.conv_tw - 1) * g.stride
+    far_tap = (g.chmax - 1) * g.pitch + (g.K - 1) * g.in_tw + g.K - 1
+    assert far_pix + far_tap < g.chmax * g.pitch
+    assert g.chmax * g.pitch + 8 * kconv.THREADS < kconv.MAGIC_LIMIT
+    # the slot: planes, B (big), B (small, fp32), tap table; the ring,
+    # the pixel table and the epilogue tile fit in 227 KB
+    assert g.off_b >= g.chmax * g.pitch * es and g.off_b % 128 == 0
+    assert g.off_bs == g.off_b + g.bn * g.bk * es
+    assert g.off_tab == g.off_bs + (g.bn * g.bk * 4 if g.dtype == 0 else 0)
+    assert g.slot == g.off_tab + 4 * g.bk and g.slot % 128 == 0
+    assert g.nstage in kconv.NSTAGES and g.off_px == g.nstage * g.slot
+    assert g.off_toff >= g.off_px + 4 * g.in_plane
+    assert g.smem >= g.off_toff + 4 * g.K ** 2
+    kk = g.K * g.K
+    assert (g.kq, g.kr, g.ci_last) == (g.bk // kk, g.bk % kk,
+                                       (g.ktot - 1) // kk)
+    assert g.smem >= 4 * g.bn * kconv.EPI_PITCH
+    assert g.smem <= kconv.SMEM_MAX
+    # the deepest ring within the per-CTA budget
+    assert g.nstage <= max(g.stages + 1, min(kconv.NSTAGES))
+    for n in kconv.NSTAGES:
+        if g.nstage < n <= g.stages + 1:
+            assert max(n * g.slot + g.off_toff - g.off_px + 4 * kk,
+                       4 * g.bn * kconv.EPI_PITCH) > kconv.RING_BUDGET
+    # 16-byte copies only where rows, planes and weights are aligned
+    e = E16[g.dtype]
+    if g.vec_x:
+        assert g.K == 1 and g.stride == 1 and g.pad == 0
+        assert g.conv_tw == g.W and g.in_tw == g.W
+        assert g.vec_x in (1, 2, 3)
+    if g.vec_x in (1, 3):
+        n = e if g.vec_x == 1 else 8 // es     # elements of one copy
+        assert (g.conv_th * g.W) % n == 0 and (g.H * g.W) % n == 0
+        assert g.pitch % n == 0 and g.in_plane % n == 0
+    if g.vec_x == 2:
+        # every stage's run starts 16-byte aligned: whole images, a group's
+        # and an image's channels a multiple of 16 bytes
+        assert g.conv_th == g.H and not g.pool_k and g.tiles_h == 1
+        assert (g.cin_pg * g.H * g.W) % e == 0 and (g.Cin * g.H * g.W) % e == 0
+        kd = kconv.k_decomposition(g.cin_pg, g.K, g.dtype)
+        for s in range(kd.stages):
+            assert kd.stage_channels(s)[0] * g.in_plane % e == 0
+    if g.vec_b:
+        assert g.ktot % e == 0 and g.bk % e == 0 and g.off_b % 16 == 0
+
+
+def _check_depthwise(g):
+    _check_tiles(g)
+    assert g.K <= kconv.DW_MAX_K and g.kt in (0, 3)
+    assert g.kt == 0 or (g.K == 3 and g.stride in (1, 2))
+    assert 1 <= g.cb <= g.Cout and g.co_blocks * g.cb >= g.Cout
+    nstrip = -(-g.conv_tw // kconv.DW_VEC)
+    win = (kconv.DW_VEC - 1) * g.stride + g.K
+    # a strip's window (read as whole float4s) stays inside its row
+    assert g.pitch_w % 4 == 0 and g.in_tw <= g.pitch_w
+    assert (nstrip - 1) * kconv.DW_VEC * g.stride + -(-win // 4) * 4 \
+        <= g.pitch_w
+    assert g.off_w >= 4 * g.cb * g.in_th * g.pitch_w
+    assert g.off_ct >= g.off_w + 4 * g.cb * g.K ** 2
+    assert g.smem >= g.off_ct + (4 * g.cb * g.conv_th * g.conv_tw
+                                 if g.pool_k else 0)
+    assert g.smem <= kconv.DW_SMEM_MAX
+    # the staging and strip loops divide by multiply-shift
+    per_ch = g.conv_th * nstrip
+    assert (g.magic, g.magic_w, g.magic_pc, g.magic_ns) == tuple(
+        kconv.magic_div(d) for d in (g.in_plane, g.in_tw, per_ch, nstrip))
+    assert g.cb * g.in_plane + 4 * kconv.DW_THREADS < kconv.MAGIC_LIMIT
+    assert g.cb * per_ch < kconv.MAGIC_LIMIT
+
+
+def _check_geometry(g):
+    (_check_depthwise if g.depthwise else _check_dense)(g)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -244,57 +329,340 @@ def test_geometry_of_every_main_path_conv(dtype):
         _check_geometry(_geometry(call, dtype))
 
 
-def _emulate_tiles(x, w, bias, g, activation):
-    """Walk the dense kernel's CTAs with torch ops: stage each haloed,
-    zero-masked input tile, conv it, apply bias/act/pool, and write the
-    valid part of the output tile.  Every output element must be written
-    exactly once."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k_decomposition_depends_on_the_weights_alone(dtype):
+    """k-steps, stage boundaries and split-K segments are the same at
+    batch 1 and 4, fused and unfused, for every main-path conv."""
+    for call in MAIN_PATH:
+        base = _geometry(call, dtype)
+        if base.depthwise:
+            continue
+        want = kconv.k_decomposition(base.cin_pg, base.K, base.dtype)
+        assert want.segments == ((0, want.kpad),)
+        for batch in (1, 4):
+            for fused in (True, False):
+                c = dict(call, x_shape=(batch,) + tuple(call["x_shape"][1:]))
+                if not fused:
+                    c.update(activation=None, pool_k=0, pool_s=0)
+                g = _geometry(c, dtype)
+                assert (g.ktot, g.bk, g.stages) == \
+                    (want.ktot, want.bk, want.stages)
+                got = kconv.k_decomposition(g.cin_pg, g.K, g.dtype)
+                assert got == want
+                assert got.kstep_bounds == want.kstep_bounds
+                assert [got.stage_taps(s) for s in range(got.stages)] == \
+                    [want.stage_taps(s) for s in range(want.stages)]
+
+
+def _tap_walk(g):
+    """csrc/conv2d.cu::TapWalk in Python: each stage's (c_lo, c_hi) and
+    thread j's (channel, tap) stepped by (kq, kr), with no division."""
+    kk = g.K * g.K
+    c_lo, r_lo = 0, 0
+    c_hi, r_hi = (g.bk - 1) // kk, (g.bk - 1) % kk
+    cj = [j // kk for j in range(g.bk)]
+    rj = [j % kk for j in range(g.bk)]
+
+    def step(c, r):
+        c, r = c + g.kq, r + g.kr
+        return (c + 1, r - kk) if r >= kk else (c, r)
+    for s in range(g.stages):
+        yield c_lo, min(c_hi, g.ci_last) + 1, list(zip(cj, rj))
+        c_lo, r_lo = step(c_lo, r_lo)
+        c_hi, r_hi = step(c_hi, r_hi)
+        cj, rj = map(list, zip(*(step(c, r) for c, r in zip(cj, rj))))
+
+
+def test_tap_walk_matches_the_divisions():
+    for call in MAIN_PATH + [dict(x_shape=(1, 7, 30, 30),
+                                  w_shape=(8, 7, 11, 11), stride=4, pad=2,
+                                  groups=1, activation=None, pool_k=0,
+                                  pool_s=0)]:
+        g = _geometry(call)
+        if g.depthwise:
+            continue
+        kd = kconv.k_decomposition(g.cin_pg, g.K, g.dtype)
+        kk = g.K * g.K
+        for s, (c_lo, c_hi, taps) in enumerate(_tap_walk(g)):
+            assert (c_lo, c_hi) == kd.stage_channels(s)
+            k0 = s * g.bk
+            assert taps == [((k0 + j) // kk, (k0 + j) % kk)
+                            for j in range(g.bk)]
+
+
+def test_param_fields_match_the_cuda_enum():
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "conv2d.cu").read_text()
+    body = re.search(r"enum Param \{([^}]*)\}", src).group(1)
+    names = [t.strip() for t in body.split(",") if t.strip()]
+    assert names == [f"P_{f.upper()}" for f in kconv._PARAM_FIELDS] \
+        + ["P_COUNT"]
+
+
+def test_magic_division_is_exact_below_the_limit():
+    i = np.arange(kconv.MAGIC_LIMIT, dtype=np.uint64)
+    planes = {g.in_plane for g in map(_geometry, MAIN_PATH)} \
+        | {1, 2, 3, 7, 49, 169, 1729, 4095, 65535}
+    for d in sorted(planes):
+        m = np.uint64(kconv.magic_div(d) % (1 << 32))
+        q = i if d == 1 else (i * m) >> np.uint64(32)
+        np.testing.assert_array_equal(q, i // np.uint64(d))
+        for v in (0, d - 1, d, 3 * d + 1, kconv.MAGIC_LIMIT - 1):
+            assert umulhi_div(v, d) == v // d
+
+
+def umulhi_div(i, d):
+    """The kernels' ``i / d``: ``__umulhi(i, magic_div(d))``."""
+    m = kconv.magic_div(d) % (1 << 32)
+    return i if d == 1 else (i * m) >> 32
+
+
+def _b_off(n, k, bn, dtype_code):
+    """csrc/conv2d.cu::b_off: byte offset of B element (n, k) in a slot."""
+    es = kconv.ESIZE[dtype_code]
+    e, kstep = 16 // es, kconv.KSTEP[dtype_code]
+    return ((k // kstep) * bn * 32 + (n >> 3) * 256
+            + ((k % kstep) // e) * 128 + (n & 7) * 16 + (k % e) * es)
+
+
+@pytest.mark.parametrize("dtype_code", [0, 1])
+@pytest.mark.parametrize("bn", kconv.BNS)
+def test_b_layout_is_wgmma_no_swizzle_k_major(bn, dtype_code):
+    """The weight slice fills its buffer exactly once, and element (n, k)
+    sits where the descriptor (start of its k-step, LBO 128, SBO 256)
+    and the 8-row x 16-byte core matrix put it."""
+    es = kconv.ESIZE[dtype_code]
+    e, kstep = 16 // es, kconv.KSTEP[dtype_code]
+    offs = sorted(_b_off(n, k, bn, dtype_code)
+                  for n in range(bn) for k in range(kconv.BK))
+    assert offs == list(range(0, bn * kconv.BK * es, es))
+    for n in range(bn):
+        for k in range(kconv.BK):
+            start = (k // kstep) * bn * kstep * es
+            core = (n // 8) * 256 + ((k % kstep) // e) * 128
+            assert _b_off(n, k, bn, dtype_code) == \
+                start + core + (n % 8) * 16 + (k % e) * es
+
+
+def _walk_dense(x, w, bias, g, activation):
+    """Walk the dense kernel's CTAs with torch ops, by the kernel's own
+    index formulas: the pixel table, each stage's planes (the magic
+    division included) and tap table, the im2col gather of A through
+    pix + tap, the k-steps in order, the segments summed in order, then
+    bias, activation, pool and the tile's stores.  Every output element
+    must be written exactly once and every read stay in the slot."""
+    kd = kconv.k_decomposition(g.cin_pg, g.K, g.dtype)
+    KK, ps = g.K * g.K, (g.pool_s if g.pool_k else 1)
+    npix = g.conv_th * g.conv_tw
     out = torch.full((g.N, g.Cout, g.Po, g.Pw), float("nan"))
-    ps = g.pool_s if g.pool_k else 1
+    m = torch.arange(kconv.BM)
+    r, c = m // g.conv_tw, m % g.conv_tw
+    pix = torch.where(m < npix, r * g.stride * g.in_tw + c * g.stride, 0)
+    e = torch.arange(g.in_plane)
+    for th in range(g.tiles_h):
+        for tw in range(g.tiles_w):
+            oh0, ow0 = th * g.tile_oh, tw * g.tile_ow
+            ih = oh0 * ps * g.stride - g.pad + e // g.in_tw
+            iw = ow0 * ps * g.stride - g.pad + e % g.in_tw
+            inside = (ih >= 0) & (ih < g.H) & (iw >= 0) & (iw < g.W)
+            pxtab = torch.where(inside, ih * g.W + iw, -1)
+            for grp in range(g.groups):
+                xg = x[:, grp * g.cin_pg:(grp + 1) * g.cin_pg].reshape(
+                    g.N, g.cin_pg, -1)
+                for cb in range(g.co_blocks):
+                    co0 = cb * g.bn
+                    rows = torch.arange(co0, co0 + g.bn)
+                    total = torch.zeros(g.N, kconv.BM, g.bn)
+                    for seg0, seg1 in kd.segments:
+                        acc = torch.zeros(g.N, kconv.BM, g.bn)
+                        walk = _tap_walk(g)
+                        for s in range(kd.stages):
+                            k0, k1 = kd.stage_taps(s)
+                            c_lo, c_hi, taps = next(walk)
+                            if not seg0 <= k0 < seg1:
+                                continue
+                            nch = c_hi - c_lo
+                            assert nch <= g.chmax
+                            slot = torch.zeros(g.N, g.chmax * g.pitch)
+                            i = torch.arange(nch * g.in_plane)
+                            cl = torch.tensor([umulhi_div(int(v),
+                                                          g.in_plane)
+                                               for v in i])
+                            ee = i - cl * g.in_plane
+                            go = pxtab[ee]
+                            vals = xg[:, c_lo + cl, go.clamp(min=0)]
+                            slot[:, cl * g.pitch + ee] = torch.where(
+                                go >= 0, vals, 0.0)
+                            k = torch.arange(k0, k0 + kconv.BK)
+                            ci = torch.tensor([c for c, _ in taps])
+                            rr = torch.tensor([r for _, r in taps])
+                            toff = (rr // g.K) * g.in_tw + rr % g.K
+                            tab = torch.where(
+                                k < kd.ktot, (ci - c_lo) * g.pitch + toff, -1)
+                            wrow = torch.zeros(g.bn, kconv.BK)
+                            ok_r = rows < g.cout_pg
+                            ok_k = k < kd.ktot
+                            wflat = w[grp * g.cout_pg:(grp + 1) * g.cout_pg
+                                      ].reshape(g.cout_pg, -1)
+                            wrow[ok_r[:, None] & ok_k[None, :]] = wflat[
+                                rows[ok_r]][:, k[ok_k]].reshape(-1)
+                            for j in range((k1 - k0) // kd.kstep):
+                                kl = torch.arange(j * kd.kstep,
+                                                  (j + 1) * kd.kstep)
+                                off = tab[kl]
+                                idx = pix[:, None] + off.clamp(min=0)[None]
+                                assert int(idx.max()) < g.chmax * g.pitch
+                                a = torch.where(off[None] >= 0,
+                                                slot[:, idx], 0.0)
+                                acc = acc + a @ wrow[:, kl].T
+                        total = total + acc
+                    co = grp * g.cout_pg + rows.clamp(max=g.cout_pg - 1)
+                    y = activate(total + bias[co][None, None], activation)
+                    y = y[:, :npix].transpose(1, 2).reshape(
+                        g.N, g.bn, g.conv_th, g.conv_tw)
+                    if g.pool_k:
+                        y = F.max_pool2d(y, g.pool_k, g.pool_s)
+                    assert tuple(y.shape[2:]) == (g.tile_oh, g.tile_ow)
+                    h = min(g.tile_oh, g.Po - oh0)
+                    wd = min(g.tile_ow, g.Pw - ow0)
+                    nco = min(g.bn, g.cout_pg - co0)
+                    cs = slice(grp * g.cout_pg + co0,
+                               grp * g.cout_pg + co0 + nco)
+                    region = out[:, cs, oh0:oh0 + h, ow0:ow0 + wd]
+                    assert torch.isnan(region).all(), "tiles overlap"
+                    out[:, cs, oh0:oh0 + h, ow0:ow0 + wd] = \
+                        y[:, :nco, :h, :wd]
+    assert not torch.isnan(out).any(), "tiles leave a gap"
+    return out
+
+
+# (case, bn): bn=None lets the planner pick
+EMULATED = {
+    "k11s4_pool32": ((1, 3, 67, 83, 8, 11, 4, 2, 1, "relu", 3, 2), None),
+    "k3_wide_rem": ((1, 4, 19, 75, 6, 3, 1, 1, 1, "relu6", 0, 0), None),
+    "k3_pool22_wide": ((2, 3, 21, 70, 5, 3, 1, 1, 1, "relu", 2, 2), None),
+    "k5_pool32": ((1, 4, 27, 31, 4, 5, 1, 2, 1, "relu", 3, 2), None),
+    "grouped_s2": ((1, 6, 45, 77, 6, 3, 2, 1, 3, None, 0, 0), None),
+    "k3_deep_bn16": ((2, 24, 9, 11, 40, 3, 1, 1, 1, "relu", 0, 0), 16),
+    "pointwise_images": ((2, 72, 8, 8, 20, 1, 1, 0, 1, "relu6", 0, 0), 16),
+    "pointwise_rows": ((2, 16, 12, 16, 8, 1, 1, 0, 1, None, 0, 0), None),
+    "pointwise_rows_14": ((1, 24, 14, 14, 16, 1, 1, 0, 1, "relu", 0, 0),
+                          None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(EMULATED))
+def test_tile_walk_reproduces_the_conv(name, dtype):
+    case, bn = EMULATED[name]
+    _, _, _, _, _, _, s, p, groups, act, pk, ps = case
+    x, w, b = (torch.from_numpy(a) for a in _conv_inputs(case, seed=1))
+    g = _plan(case, bn, dtype)
+    _check_geometry(g)
+    assert g.tiles_h * g.tiles_w * g.co_blocks > 1  # really several CTAs
+    got = _walk_dense(x, w, b, g, act)
+    want = conv2d_plain(x, w, stride=s, pad=p, bias=b, activation=act,
+                        groups=groups, pool_k=pk, pool_s=ps)
+    _assert_close(got.numpy(), want.numpy(), FP32_TOL)
+
+
+def _plan(case, bn=None, dtype=torch.float32):
+    """``plan_conv`` of a case, the dense kernel's BN narrowed to ``bn``
+    when given (the planner's only per-launch choice)."""
+    n, cin, h, w, cout, k, s, p, groups, act, pk, ps = case
+    saved = kconv.BNS
+    kconv.plan_conv.cache_clear()
+    try:
+        if bn is not None:
+            kconv.BNS = (bn,)
+        return kconv.plan_conv((n, cin, h, w), (cout, cin // groups, k, k),
+                               stride=s, pad=p, groups=groups,
+                               activation=act, pool_k=pk, pool_s=ps,
+                               dtype=dtype)
+    finally:
+        kconv.BNS = saved
+        kconv.plan_conv.cache_clear()
+
+
+def test_walked_plans_cover_the_16_byte_paths_and_several_stages():
+    plans = {n: _plan(*EMULATED[n]) for n in EMULATED}
+    assert plans["pointwise_images"].vec_x == 2
+    assert plans["pointwise_rows"].vec_x == 1
+    assert _plan(*EMULATED["pointwise_rows_14"], torch.bfloat16).vec_x == 3
+    assert plans["pointwise_rows"].vec_b and plans["pointwise_images"].vec_b
+    assert not plans["k11s4_pool32"].vec_b     # 363-tap rows: 4-byte copies
+    assert plans["k3_deep_bn16"].stages > 1
+    assert plans["k11s4_pool32"].stages > 1
+
+
+def _walk_depthwise(x, w, bias, g, activation):
+    """Walk the depthwise kernel's CTAs: stage each channel's haloed tile
+    (zero outside the image) in rows of pitch_w, compute every strip of
+    DW_VEC outputs from its window (fp32, kh then kw), then bias,
+    activation and the pool from the conv tile."""
+    KK, ps, V = g.K * g.K, (g.pool_s if g.pool_k else 1), kconv.DW_VEC
+    nstrip = -(-g.conv_tw // V)
+    out = torch.full((g.N, g.Cout, g.Po, g.Pw), float("nan"))
     for th in range(g.tiles_h):
         for tw in range(g.tiles_w):
             oh0, ow0 = th * g.tile_oh, tw * g.tile_ow
             ih0 = oh0 * ps * g.stride - g.pad
             iw0 = ow0 * ps * g.stride - g.pad
-            tile = torch.zeros(g.N, g.Cin, g.in_th, g.in_tw)
-            r0, r1 = max(ih0, 0), min(ih0 + g.in_th, g.H)
-            c0, c1 = max(iw0, 0), min(iw0 + g.in_tw, g.W)
-            if r1 > r0 and c1 > c0:
-                tile[:, :, r0 - ih0:r1 - ih0, c0 - iw0:c1 - iw0] = \
-                    x[:, :, r0:r1, c0:c1]
-            y = F.conv2d(tile, w, stride=g.stride, groups=g.groups)
-            assert tuple(y.shape[2:]) == (g.conv_th, g.conv_tw)
-            y = activate(y + bias[None, :, None, None], activation)
-            if g.pool_k:
-                y = F.max_pool2d(y, g.pool_k, g.pool_s)
-            assert tuple(y.shape[2:]) == (g.tile_oh, g.tile_ow)
-            h, wd = min(g.tile_oh, g.Po - oh0), min(g.tile_ow, g.Pw - ow0)
-            region = out[:, :, oh0:oh0 + h, ow0:ow0 + wd]
-            assert torch.isnan(region).all(), "tiles overlap"
-            out[:, :, oh0:oh0 + h, ow0:ow0 + wd] = y[:, :, :h, :wd]
+            for blk in range(g.co_blocks):
+                c0 = blk * g.cb
+                nc = min(g.cb, g.Cout - c0)
+                xs = torch.zeros(g.N, nc, g.in_th, g.pitch_w)
+                r0, r1 = max(ih0, 0), min(ih0 + g.in_th, g.H)
+                q0, q1 = max(iw0, 0), min(iw0 + g.in_tw, g.W)
+                if r1 > r0 and q1 > q0:
+                    xs[:, :, r0 - ih0:r1 - ih0, q0 - iw0:q1 - iw0] = \
+                        x[:, c0:c0 + nc, r0:r1, q0:q1]
+                conv = torch.zeros(g.N, nc, g.conv_th, nstrip * V)
+                cols = torch.arange(nstrip * V)       # strip sc, lane v
+                for kh in range(g.K):
+                    for kw in range(g.K):
+                        rows = torch.arange(g.conv_th) * g.stride + kh
+                        cidx = cols * g.stride + kw
+                        assert int(cidx.max()) < g.pitch_w
+                        win = xs[:, :, rows][:, :, :, cidx]
+                        wk = w[c0:c0 + nc, 0, kh, kw]
+                        conv = conv + wk[None, :, None, None] * win
+                conv = conv[..., :g.conv_tw] \
+                    + bias[c0:c0 + nc][None, :, None, None]
+                y = activate(conv, activation)
+                if g.pool_k:
+                    y = F.max_pool2d(y, g.pool_k, g.pool_s)
+                h, wd = min(g.tile_oh, g.Po - oh0), min(g.tile_ow,
+                                                        g.Pw - ow0)
+                region = out[:, c0:c0 + nc, oh0:oh0 + h, ow0:ow0 + wd]
+                assert torch.isnan(region).all(), "tiles overlap"
+                out[:, c0:c0 + nc, oh0:oh0 + h, ow0:ow0 + wd] = \
+                    y[:, :, :h, :wd]
     assert not torch.isnan(out).any(), "tiles leave a gap"
+    assert KK == g.K ** 2
     return out
 
 
-EMULATED = {
-    "k11s4_pool32": (1, 3, 67, 83, 8, 11, 4, 2, 1, "relu", 3, 2),
-    "k3_wide_rem": (1, 4, 19, 75, 6, 3, 1, 1, 1, "relu6", 0, 0),
-    "k3_pool22_wide": (2, 3, 21, 70, 5, 3, 1, 1, 1, "relu", 2, 2),
-    "k5_pool32": (1, 4, 27, 31, 4, 5, 1, 2, 1, "relu", 3, 2),
-    "grouped_s2": (1, 6, 45, 77, 6, 3, 2, 1, 3, None, 0, 0),
+DW_EMULATED = {
+    "s1_wide": (2, 6, 19, 75, 6, 3, 1, 1, 6, "relu6", 0, 0),
+    "s2": (1, 5, 37, 41, 5, 3, 2, 1, 5, "relu6", 0, 0),
+    "pool32": (1, 4, 40, 45, 4, 3, 1, 1, 4, "relu", 3, 2),
+    "k5_generic": (1, 3, 21, 70, 3, 5, 1, 2, 3, None, 0, 0),
+    "k3s3_pool22": (2, 3, 50, 38, 3, 3, 3, 0, 3, "relu", 2, 2),
 }
 
 
-@pytest.mark.parametrize("name", sorted(EMULATED))
-def test_tile_walk_reproduces_the_conv(name):
-    case = EMULATED[name]
+@pytest.mark.parametrize("name", sorted(DW_EMULATED))
+def test_depthwise_tile_walk_reproduces_the_conv(name):
+    case = DW_EMULATED[name]
     _, _, _, _, _, _, s, p, groups, act, pk, ps = case
-    x, w, b = (torch.from_numpy(a) for a in _conv_inputs(case, seed=1))
-    g = kconv.plan_conv(x.shape, w.shape, stride=s, pad=p, groups=groups,
-                        activation=act, pool_k=pk, pool_s=ps)
+    x, w, b = (torch.from_numpy(a) for a in _conv_inputs(case, seed=2))
+    g = _plan(case)
+    assert g.depthwise
     _check_geometry(g)
-    assert g.tiles_h * g.tiles_w > 1           # really several tiles
-    got = _emulate_tiles(x, w, b, g, act)
+    assert g.tiles_h * g.tiles_w > 1 or g.co_blocks > 1
+    got = _walk_depthwise(x, w, b, g, act)
     want = conv2d_plain(x, w, stride=s, pad=p, bias=b, activation=act,
                         groups=groups, pool_k=pk, pool_s=ps)
     _assert_close(got.numpy(), want.numpy(), FP32_TOL)
