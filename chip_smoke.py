@@ -7,9 +7,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all at once); every dense conv instantiation must hold
-   tensor-core ``HGMMA``s in its SASS and no depthwise one a stack frame
-   (``-Xptxas -v``, ``cuobjdump -sass``);
+   source, all at once); every dense conv instantiation and every flash
+   attention one must hold tensor-core ``HGMMA``s (wgmma) in its SASS,
+   every SSD product kernel (chunk states, outputs) ``HMMA``s
+   (mma.sync); no depthwise conv, flash or SSD kernel may have a stack
+   frame or spill (``-Xptxas -v``, ``cuobjdump -sass``);
 3. hold the conv kernels against their plain PyTorch version at every
    distinct conv (and fused conv+act+pool) shape of AlexNet, VGG16 and
    MobileNetV2 at 224 px, batch 1, of AlexNet and MobileNetV2 at batch
@@ -30,8 +32,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 6. time every kernel against its plain version and the PyTorch library
    call (``F.conv2d``, fp32 and bf16; ``torch.mul`` for dequantize; none
    for quantize;
-   ``F.scaled_dot_product_attention`` for flash attention, with an
-   explicit end-aligned mask where Sq < Sk; none for WKV and SSD) at the
+   ``F.scaled_dot_product_attention`` for flash attention, fp32 and bf16,
+   each checked against the kernel first, with an explicit end-aligned
+   mask where Sq < Sk; none for WKV and SSD) at the
    main paths' shapes (CUDA graphs of
    back-to-back launches, CUDA events, warm L2, in turns), and print one
    ``{"kernels": [...]}`` JSON line with each kernel's launches, error,
@@ -76,6 +79,15 @@ PEAK_BYTES = 3.35e12
 # The rate of the arithmetic the dense conv kernel runs: fp32 storage as
 # three TF32 tensor-core passes (495 TFLOP/s each), bf16 as one bf16 pass.
 CONV_PEAK = {"fp32": 495e12 / 3, "bf16": 989e12}
+# The same for the sequence kernels: flash attention as the conv (its
+# bf16 P V runs a second bf16 pass for P's low half, which the bound
+# does not count: the function's operations at the bf16 rate); the SSD
+# runs TF32 passes in both storage dtypes (up to three, fewer where a
+# bf16 operand is exact); WKV runs on the CUDA cores.
+MIXER_PEAK = {"flash_attention": CONV_PEAK,
+              "mamba2_ssd": {"fp32": 495e12 / 3, "bf16": 495e12 / 3},
+              "rwkv6_wkv": PEAK_FLOPS}
+TENSOR_CORE_MIXERS = ("flash_attention", "mamba2_ssd")
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
 LOGIT_TOL = 1e-3
@@ -571,7 +583,8 @@ def mixer_cases(configs, rwkv_hd):
 
 
 # The small shapes of tests/test_kernels.py's sweeps (flash L27-38, WKV
-# L144-148, SSD L184-188), GQA, a causal Sq > Sk case and ragged T.
+# L144-148, SSD L184-188), GQA, a causal Sq > Sk case, ragged T and an
+# SSD chunk of 96.
 SMALL_MIXERS = [
     *(dict(kernel="flash_attention", label="sweep", B=1, Sq=sq, Sk=sk, H=bh,
            KV=bh, hd=hd, causal=causal, block_q=bq, block_k=bk)
@@ -597,6 +610,9 @@ SMALL_MIXERS = [
                                      (2, 96, 1, 64, 64, 32))),
     dict(kernel="mamba2_ssd", label="ragged T", B=2, T=50, H=2, hp=16, ds=8,
          G=2, chunk=32),
+    # chunk > 64: att in its own tile, strips and column groups looped
+    dict(kernel="mamba2_ssd", label="chunk 96", B=1, T=192, H=2, hp=80,
+         ds=72, G=2, chunk=96),
 ]
 
 
@@ -732,9 +748,11 @@ def phase_mixer_checks(torch, kops, ref, cases, inputs, outs, dev):
 
 
 def mixer_bound(case, dname):
-    """(FLOP time, byte time) in seconds of one call: each input read once
-    and each output written once; FLOPs of the work this call's data needs
-    (visible query-key pairs; the causal half of each SSD chunk)."""
+    """(FLOP time at the rate of the kernel's arithmetic, byte time, FLOP
+    time at the CUDA-core fp32 rate) in seconds of one call: each input
+    read once and each output written once; FLOPs of the work this call's
+    data needs (visible query-key pairs; the causal half of each SSD
+    chunk)."""
     e = 4 if dname == "fp32" else 2
     B = case["B"]
     if case["kernel"] == "flash_attention":
@@ -759,12 +777,33 @@ def mixer_bound(case, dname):
         pairs = L * (L + 1) // 2
         flops = B * H * n * (2.0 * pairs * (ds + hp) + 4.0 * L * hp * ds)
         nbytes = e * B * T * H * (2 * hp + 2 * ds + 1) + 4 * H
-    return flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+    return (flops / MIXER_PEAK[case["kernel"]][dname], nbytes / PEAK_BYTES,
+            flops / PEAK_FLOPS["fp32"])
+
+
+def sdpa_call(torch, F, case, args):
+    """One ``F.scaled_dot_product_attention`` call computing the kernel's
+    function on its (B, S, heads, hd) inputs: GQA, the end-aligned causal
+    mask given explicitly where Sq != Sk (SDPA's is_causal is top-left
+    aligned; every row of the phase-7 calls sees a key)."""
+    qh, kh, vh = (t.transpose(1, 2) for t in args)
+    Sq, Sk = case["Sq"], case["Sk"]
+    mask = None
+    if Sq != Sk:
+        qpos = torch.arange(Sq, device=qh.device)[:, None]
+        kpos = torch.arange(Sk, device=qh.device)[None, :]
+        mask = kpos <= qpos + (Sk - Sq)
+
+    def lib():
+        return F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+    return lib
 
 
 def phase_time_mixers(torch, F, kops, ref, cases, inputs):
     """Kernel, plain and library times of every phase-7 call, fp32 and
-    bf16; the aggregate (fp32) feeds the kernels line."""
+    bf16; the aggregates feed the kernels line (fp32 keys, and *_bf16)."""
     agg, rows = {}, []
     plain_reps = {"flash_attention": 3, "rwkv6_wkv": 1, "mamba2_ssd": 3}
     for (i, d), args in inputs.items():
@@ -775,46 +814,88 @@ def phase_time_mixers(torch, F, kops, ref, cases, inputs):
             "plain_ms": Timer(torch, lambda: plain_mixer(ref, case, args),
                               reps=plain_reps[name])}
         lib_err = None
-        if name == "flash_attention" and d == "fp32":
-            qh, kh, vh = (t.transpose(1, 2) for t in args)
-            Sq, Sk = case["Sq"], case["Sk"]
-            mask = None
-            if Sq != Sk:
-                # SDPA's is_causal is top-left aligned: give the end-aligned
-                # mask (every row here sees a key, so no row is all masked)
-                qpos = torch.arange(Sq, device=qh.device)[:, None]
-                kpos = torch.arange(Sk, device=qh.device)[None, :]
-                mask = kpos <= qpos + (Sk - Sq)
-
-            def lib():
-                return F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask, is_causal=mask is None,
-                    enable_gqa=True)
+        if name == "flash_attention":
+            lib = sdpa_call(torch, F, case, args)
             lib_err, rel = row_err(lib().transpose(1, 2),
                                    call_mixer(kops, case, args))
-            check(rel <= 1e-3,
-                  f"SDPA {case['label']} differs from the kernel by "
+            tol = 1e-3 if d == "fp32" else BF16_TOL
+            check(rel <= tol,
+                  f"SDPA {case['label']} {d} differs from the kernel by "
                   f"{rel} of its row's scale (max abs {lib_err})")
             timers["library_ms"] = Timer(torch, lib, reps=5)
         t = in_turns(timers)
         t.setdefault("library_ms", None)
-        t_f, t_b = mixer_bound(case, d)
+        t_f, t_b, t_cc = mixer_bound(case, d)
         row = dict(case, dtype=d, flop_ms=1e3 * t_f, byte_ms=1e3 * t_b,
-                   bound_ms=1e3 * max(t_f, t_b), library_max_abs_err=lib_err,
-                   **t)
+                   bound_ms=1e3 * max(t_f, t_b),
+                   bound_ms_cuda_cores=1e3 * max(t_cc, t_b),
+                   library_max_abs_err=lib_err, **t)
         rows.append(row)
-        if d != "fp32":
-            continue
         a = agg.setdefault(name, dict(
             ms=0.0, plain_ms=0.0, flop_ms=0.0, byte_ms=0.0, bound_ms=0.0,
-            calls=0, library_ms=None if t["library_ms"] is None else 0.0))
+            calls=0, library_ms=None if t["library_ms"] is None else 0.0,
+            ms_bf16=0.0, bound_ms_bf16=0.0,
+            library_ms_bf16=None if t["library_ms"] is None else 0.0,
+            **({"bound_ms_cuda_cores": 0.0}
+               if name in TENSOR_CORE_MIXERS else {})))
+        if d != "fp32":
+            a["ms_bf16"] += row["ms"]
+            a["bound_ms_bf16"] += row["bound_ms"]
+            if a["library_ms_bf16"] is not None:
+                a["library_ms_bf16"] += t["library_ms"]
+            continue
         for key in ("ms", "plain_ms", "flop_ms", "byte_ms", "bound_ms"):
             a[key] += row[key]
+        if "bound_ms_cuda_cores" in a:
+            a["bound_ms_cuda_cores"] += row["bound_ms_cuda_cores"]
         a["calls"] += 1
         if a["library_ms"] is not None:
             # every call of a kernel with a library call has it timed
             a["library_ms"] += t["library_ms"]
     return agg, rows
+
+
+def phase_build(_build):
+    """Phase 2: build every source at once; check what nvcc made of the
+    tensor-core kernels.  Returns the logs and the per-kernel reports."""
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k}: {len(v)} B of log' for k, v in logs.items())})")
+    report = {}
+    for src in ("conv2d", "flash_attention", "mamba2_ssd"):
+        ptxas = _build.ptxas_report(logs[src])
+        sass = _build.sass_report(_build._target(src))
+        report[src] = {k: dict(ptxas.get(k, {}), **sass.get(k, {}))
+                       for k in sorted(set(ptxas) | set(sass))}
+    for name, r in report["conv2d"].items():
+        if name.startswith("conv2d_dense_kernel"):
+            check(r["hgmma"] > 0, f"{name}: no HGMMA in its SASS")
+        if name.startswith("conv2d_depthwise_kernel"):
+            check(r["stack"] == 0, f"{name}: {r['stack']} B stack frame")
+    found = [n.split("<")[0] for kernels in report.values() for n in kernels]
+    for name, want in (("conv2d_dense_kernel", 6), ("flash_kernel", 16),
+                       ("ssd_states_kernel", 2), ("ssd_output_kernel", 2),
+                       ("ssd_scan_kernel", 1)):
+        check(found.count(name) == want, f"phase 2: {found.count(name)} "
+              f"{name} instantiations named, not {want}")
+    flash = report["flash_attention"]
+    for name, r in list(flash.items()) + list(report["mamba2_ssd"].items()):
+        check(r["stack"] == 0 and r["spill_stores"] == 0
+              and r["spill_loads"] == 0,
+              f"{name}: {r['stack']} B stack frame, spills "
+              f"{r['spill_stores']}/{r['spill_loads']} B")
+        if name.startswith("flash_kernel"):
+            check(r["hgmma"] > 0, f"{name}: no HGMMA in its SASS")
+        if name.startswith(("ssd_states_kernel", "ssd_output_kernel")):
+            check(r["hmma"] > 0, f"{name}: no HMMA in its SASS")
+    for src, kernels in report.items():
+        print(f"phase 2: {src} kernels (registers/stack B/spill B/SASS/"
+              f"HGMMA/HMMA): " + ", ".join(
+                  f"{n} {r.get('registers', '?')}/{r.get('stack', '?')}/"
+                  f"{r.get('spill_stores', '?')}/{r['instructions']}/"
+                  f"{r['hgmma']}/{r['hmma']}" for n, r in kernels.items()))
+    return logs, report
 
 
 # ---------------------------------------------------------------------------
@@ -854,24 +935,9 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs, kernel_report = phase_build(_build)
     regs = [ln.strip() for text in logs.values() for ln in text.splitlines()
             if "registers" in ln or "spill" in ln]
-    print(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(f'{k}: {len(v)} B of log' for k, v in logs.items())})")
-    conv_sass = _build.sass_report(_build._target("conv2d"))
-    conv_ptxas = _build.ptxas_report(logs["conv2d"])
-    for name, r in conv_sass.items():
-        if name.startswith("conv2d_dense_kernel"):
-            check(r["hgmma"] > 0, f"{name}: no HGMMA in its SASS")
-    for name, r in conv_ptxas.items():
-        if name.startswith("conv2d_depthwise_kernel"):
-            check(r["stack"] == 0, f"{name}: {r['stack']} B stack frame")
-    print("phase 2: conv kernels (registers/stack B/SASS/HGMMA): " + ", ".join(
-        f"{n[7:]} {conv_ptxas.get(n, {}).get('registers', '?')}/"
-        f"{conv_ptxas.get(n, {}).get('stack', '?')}/{r['instructions']}/"
-        f"{r['hgmma']}" for n, r in sorted(conv_sass.items())))
 
     worst, conv_rows = phase_conv(torch, F, cnn, kconv, ref, dev)
     shapes = boundary_shapes(cnn, core, profiles) + [(4, 4096)]
@@ -915,7 +981,7 @@ def main() -> int:
                                  "library_ms_bf16", "bound_ms_bf16")
                if k in a}})
     detail = dict(card=card, torch=torch.__version__, conv_checks=conv_rows,
-                  conv_sass=conv_sass, conv_ptxas=conv_ptxas,
+                  kernel_report=kernel_report,
                   mixer_checks=mixer_rows, runs=runs, timings=time_rows,
                   kernels=kernels, ptxas=regs,
                   seconds=time.perf_counter() - t_start)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What nvcc made of CUDA sources: per kernel, registers, stack frame and
 spills (``-Xptxas -v``) and SASS instructions, tensor-core ``HGMMA``s
-among them (``cuobjdump -sass``).
+(wgmma) and ``HMMA``s (mma.sync) among them (``cuobjdump -sass``).
 
     python3 scripts/kernel_report.py [source.cu ...]
 
@@ -33,8 +33,9 @@ def main(argv: list[str]) -> int:
     for i, src in enumerate(sources):
         lib = out_dir / f"lib{i}-{src.stem}.so"
         build = subprocess.run(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(lib), str(src)], capture_output=True, text=True)
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+             str(_build.CSRC), "-o", str(lib), str(src)],
+            capture_output=True, text=True)
         if build.returncode:
             print(build.stdout[-4000:], build.stderr[-4000:])
             return 1
@@ -49,7 +50,7 @@ def main(argv: list[str]) -> int:
                   f"stack {r.get('stack', '?'):>4} B  spills "
                   f"{r.get('spill_stores', '?')}/{r.get('spill_loads', '?')}"
                   f" B  SASS {r.get('instructions', '?'):>6}  HGMMA "
-                  f"{r.get('hgmma', '?')}")
+                  f"{r.get('hgmma', '?')}  HMMA {r.get('hmma', '?')}")
     with open(ROOT / "chiprun_out" / "kernel_report.json", "w") as f:
         json.dump(report, f, indent=1)
     return 0

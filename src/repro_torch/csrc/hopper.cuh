@@ -1,0 +1,349 @@
+// Hopper (sm_90a) building blocks shared by the port's kernels: storage
+// conversions, cp.async, the 3xTF32 split, wgmma (fences, the no-swizzle
+// descriptor, m64nNk8 tf32 and m64nNk16 bf16 products with A from
+// registers or shared memory) and mma.sync m16n8k8 tf32.  Included by
+// conv2d.cu, flash_attention.cu and mamba2_ssd.cu; each source compiles
+// on its own, so everything here is internal to the file that includes
+// it.  (repro_torch/kernels/_build.py hashes this header into the name of
+// every library whose source includes it.)
+#pragma once
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async with zero-fill: when !valid no byte is read and zeros land.
+// No "memory" clobber: the copies read inputs the kernels never write,
+// and what they write is read only after cp.async.wait_group and a
+// barrier (both clobber memory), so other loads may move across them.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// wait until at most n (0..2) of this thread's copy groups are pending
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+// fp32 -> tf32, round to nearest, ties away from zero (the low 13 bits of
+// the result are 0).  The 3xTF32 split of v: big = tf32(v), small =
+// tf32(v - big); a product sums small*big, big*small, big*big.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ void tf32_split(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
+}
+__device__ __forceinline__ float4 tf32_big4(float4 v) {
+  return make_float4(__uint_as_float(tf32_rna(v.x)),
+                     __uint_as_float(tf32_rna(v.y)),
+                     __uint_as_float(tf32_rna(v.z)),
+                     __uint_as_float(tf32_rna(v.w)));
+}
+__device__ __forceinline__ float4 tf32_small4(float4 v, float4 big) {
+  return make_float4(__uint_as_float(tf32_rna(v.x - big.x)),
+                     __uint_as_float(tf32_rna(v.y - big.y)),
+                     __uint_as_float(tf32_rna(v.z - big.z)),
+                     __uint_as_float(tf32_rna(v.w - big.w)));
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Descriptor of a tile without swizzle: 8-row x 16-byte core matrices,
+// the two of one k-step 128 bytes apart (LBO), 8-row groups 256 bytes
+// apart (SBO).  For a K-major operand a core matrix is 8 rows (M or N) x
+// 16 bytes of K; for an MN-major bf16 B (transpose bit set) it is 8 rows
+// of K x 16 bytes of N, with the same offsets.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16)
+         | ((uint64_t)(256 >> 4) << 32);
+}
+
+// Byte offset of element (n, k) of a K-major operand of BN rows in that
+// layout (ES-byte elements, KSTEP of them a k-step): k-step blocks of
+// BN*32 bytes, then 8-row groups of 256, then the core matrix.
+template <int BN, int ES, int KSTEP>
+__device__ __forceinline__ int b_off(int n, int k) {
+  constexpr int E = 16 / ES;
+  return (k / KSTEP) * BN * 32 + (n >> 3) * 256 + ((k % KSTEP) / E) * 128
+         + (n & 7) * 16 + (k % E) * ES;
+}
+
+// wgmma with A from registers and B from shared memory, D += A * B, for
+// M = 64 and N = 16, 32, 64.  A fragment (per warp w, g = lane / 4,
+// t = lane % 4): tf32 a0..a3 = (16w+g, t), (16w+g+8, t), (16w+g, t+4),
+// (16w+g+8, t+4); bf16 the same rows at column pairs (2t, 2t+1) and
+// (2t+8, 2t+9).  D: d[4j..4j+3] = (16w+g, 8j+2t), (16w+g, 8j+2t+1),
+// (16w+g+8, 8j+2t), (16w+g+8, 8j+2t+1).  The bf16 forms take B's
+// transpose bit TB (1: B is MN-major).  The wgmma_ss_ forms read A from
+// shared memory too (K-major, the same core-matrix layout as B).
+__device__ __forceinline__ void wgmma_tf32_n16(float* d, const uint32_t* a,
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n32(float* d, const uint32_t* a,
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a,
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_bf16_n16(float* d, const uint32_t* a,
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+}
+
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_bf16_n32(float* d, const uint32_t* a,
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+}
+
+template <int TB = 0>
+__device__ __forceinline__ void wgmma_bf16_n64(float* d, const uint32_t* a,
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float* d, uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32_n64(float* d, uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_bf16_n64(float* d, uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint64_t desc) {
+  if constexpr (BN == 16) wgmma_tf32_n16(d, a, desc);
+  else if constexpr (BN == 32) wgmma_tf32_n32(d, a, desc);
+  else wgmma_tf32_n64(d, a, desc);
+}
+template <int BN, int TB = 0>
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint64_t desc) {
+  if constexpr (BN == 16) wgmma_bf16_n16<TB>(d, a, desc);
+  else if constexpr (BN == 32) wgmma_bf16_n32<TB>(d, a, desc);
+  else wgmma_bf16_n64<TB>(d, a, desc);
+}
+
+// mma.sync m16n8k8 tf32, D += A * B, one warp.  A (16 x 8, g = lane / 4,
+// t = lane % 4): a0..a3 = (g, t), (g+8, t), (g, t+4), (g+8, t+4); B (8 x
+// 8): b0, b1 = (t, g), (t+4, g); D: d0..d3 = (g, 2t), (g, 2t+1),
+// (g+8, 2t), (g+8, 2t+1).
+__device__ __forceinline__ void mma_sync_tf32(float* d, const uint32_t* a,
+                                              const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+}  // namespace
+
+// Phase stamps, for scripts/phase_stamps.py: STAMP(i) records clock64()
+// of thread 0 of block (STAMP_X, STAMP_Y) into g_stamps[T is bf16][i]
+// where STAMP_WHEN holds; STAMP_ALL(i) first waits for the whole CTA.
+// Both are empty unless the source is built with -DPHASE_STAMPS.
+#ifdef PHASE_STAMPS
+#ifndef STAMP_WHEN
+#define STAMP_WHEN true
+#endif
+__device__ long long g_stamps[2][16];
+#define STAMP(i)                                                         \
+  do {                                                                   \
+    if (blockIdx.x == STAMP_X && blockIdx.y == STAMP_Y &&                \
+        threadIdx.x == 0 && (STAMP_WHEN))                                \
+      g_stamps[sizeof(T) == 2][i] = clock64();                           \
+  } while (0)
+#define STAMP_ALL(i) \
+  do {               \
+    __syncthreads(); \
+    STAMP(i);        \
+  } while (0)
+extern "C" int read_stamps(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps));
+}
+#else
+#define STAMP(i) \
+  do {           \
+  } while (0)
+#define STAMP_ALL(i) \
+  do {               \
+  } while (0)
+#endif

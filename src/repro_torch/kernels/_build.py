@@ -50,10 +50,30 @@ def nvcc_path() -> str:
     return tool_path("nvcc")
 
 
+def includes(path: Path) -> list[Path]:
+    """The ``#include "..."`` files of a source under ``csrc/``, and
+    theirs, each once, in order of first inclusion."""
+    found: list[Path] = []
+    todo = [path]
+    while todo:
+        text = todo.pop(0).read_text()
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            dep = (CSRC / inc).resolve()
+            if dep not in found:
+                found.append(dep)
+                todo.append(dep)
+    return found
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+    """The library's path, named by the hash of the source, every header
+    it includes and the flags: editing any of them rebuilds."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for dep in includes(src):
+        h.update(dep.name.encode() + b"\0" + dep.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
@@ -94,15 +114,28 @@ def build_all(names=SOURCES) -> dict[str, str]:
 
 
 def kernel_label(mangled: str) -> str:
-    """``conv2d_dense_kernel<fp32,64>`` for a mangled conv kernel name
-    (the dtype and the integer template arguments), else the name."""
-    m = re.search(r"(conv2d_[a-z]+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)",
-                  mangled)
+    """``conv2d_dense_kernel<fp32,64>`` for a mangled kernel name of this
+    package: its name, in or out of a (length-prefixed) namespace, then
+    the dtype and the integer template arguments; else the name as it
+    is."""
+    m = re.match(r"_ZN?(\d+)", mangled)
     if not m:
         return mangled
-    args = ["fp32" if m.group(2) == "f" else "bf16",
-            *re.findall(r"Li(\d+)E", m.group(3))]
-    return f"{m.group(1)}<{','.join(args)}>"
+    pos, names = m.start(1), []
+    while True:
+        n = re.match(r"\d+", mangled[pos:])
+        if not n:
+            break
+        start = pos + len(n.group())
+        names.append(mangled[start:start + int(n.group())])
+        pos = start + int(n.group())
+    name = names[-1]
+    args = re.match(r"I(f|13__nv_bfloat16)((?:Li\d+E)*)", mangled[pos:])
+    if not args:
+        return name
+    return "{}<{}>".format(name, ",".join(
+        ["fp32" if args.group(1) == "f" else "bf16",
+         *re.findall(r"Li(\d+)E", args.group(2))]))
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
@@ -129,7 +162,8 @@ def ptxas_report(log: str) -> dict[str, dict]:
 
 def sass_report(lib: Path) -> dict[str, dict]:
     """Per kernel of a built library (``cuobjdump -sass``): its SASS
-    instructions and how many are tensor-core ``HGMMA``s."""
+    instructions and how many are tensor-core products, ``HGMMA``
+    (wgmma) and ``HMMA`` (mma.sync)."""
     text = subprocess.run([tool_path("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     out, cur = {}, None
@@ -137,10 +171,11 @@ def sass_report(lib: Path) -> dict[str, dict]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = out.setdefault(kernel_label(m.group(1)),
-                                 dict(instructions=0, hgmma=0))
+                                 dict(instructions=0, hgmma=0, hmma=0))
         elif cur is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
             cur["instructions"] += 1
             cur["hgmma"] += "HGMMA" in line
+            cur["hmma"] += bool(re.search(r"\bHMMA\b", line))
     return out
 
 
@@ -192,6 +227,17 @@ def check_inputs(name: str, tensors: dict, dtypes=tuple(DTYPE_CODE)) -> None:
                              f"{first.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {n} must be contiguous")
+
+
+def check_aligned(name: str, tensors: dict, align: int) -> None:
+    """Raise ``ValueError`` where a tensor's first element is not
+    ``align``-byte aligned: the kernels' vector copies assume it (a view
+    with a storage offset can break it), and take no other path."""
+    for n, t in tensors.items():
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: {n} starts at an address that is not "
+                             f"{align}-byte aligned (a view with an offset?"
+                             f"); the kernel's {align}-byte copies need it")
 
 
 def ptr(t) -> VOIDP:

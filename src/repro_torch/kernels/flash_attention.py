@@ -27,28 +27,64 @@ import torch
 from repro_torch.kernels import _build, launches
 from repro_torch.kernels.ref import attention_plain, attention_scale
 
-BQ = 64                       # query rows per CTA
-BK = 64                       # keys per staged tile
-LDT = BQ + 4                  # Q^T / K^T row stride (floats)
-LDS = BQ + 8                  # S^T row stride
-THREADS = 256
-HD_STEP = 16                  # hd is a multiple of 16 (16 column lanes)
+# per storage dtype: query rows a CTA (64 a warpgroup, one wgmma M each),
+# keys a staged tile, threads a CTA
+BQ = {torch.float32: 64, torch.bfloat16: 128}
+BK = {torch.float32: 32, torch.bfloat16: 64}
+THREADS = {torch.float32: 128, torch.bfloat16: 256}
+NKSLOT = {torch.float32: 2, torch.bfloat16: 3}  # K tiles in the ring
+NVSLOT = 2                    # V tiles in the ring
+VPAD = 4                      # fp32: floats past hd in a staged V row
+HD_STEP = 16                  # hd is a multiple of 16 (wgmma N chunks)
 MAX_HD = 128
 SMEM_MAX = 227 * 1024
 GRID_Y_MAX = 65535
+ALIGN = 16                    # bytes: the 16-byte cp.async copies
 
 _V, _I = _build.VOIDP, _build.INT
 _SIGNATURES = {
     "flash_attention_launch": (
         [_V] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 5 + [_V, _V],
         ctypes.c_int),
-    "flash_attention_tiles": ([ctypes.POINTER(ctypes.c_int)], None)}
+    "flash_attention_tiles": ([ctypes.POINTER(ctypes.c_int)], None),
+    "flash_attention_smem": ([_I, _I], ctypes.c_int)}
 _tiles_checked = False
+
+
+def tile_constants() -> tuple[int, ...]:
+    """What ``flash_attention_tiles`` reports when the kernel agrees: BQ,
+    BK, THREADS and NKSLOT of fp32 then of bf16, NVSLOT, VPAD."""
+    return (*(c[d] for d in (torch.float32, torch.bfloat16)
+              for c in (BQ, BK, THREADS, NKSLOT)), NVSLOT, VPAD)
+
+
+def smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Shared bytes of one CTA (the kernel's ``Layout``): Q (and its small
+    half in fp32), NKSLOT K tiles, NVSLOT V tiles (fp32 rows padded by VPAD
+    floats), then fp32's K small half and V^T's two halves, two sets of
+    them (one written while P V reads the other)."""
+    bq, bk, nk = BQ[dtype], BK[dtype], NKSLOT[dtype]
+    if dtype == torch.float32:
+        q, kt, vt = bq * hd * 4, bk * hd * 4, bk * (hd + VPAD) * 4
+        return 2 * q + nk * kt + NVSLOT * vt + 2 * 3 * kt
+    q, kt = bq * hd * 2, bk * hd * 2
+    return q + (nk + NVSLOT) * kt
+
+
+def key_order(bk: int) -> tuple[int, ...]:
+    """fp32: the key held at each position of V^T's K dimension: within
+    each 8-key k-step the keys 0 2 4 6 1 3 5 7, so that the S accumulator's
+    columns (2t, 2t+1) are the tf32 A fragment's (t, t+4)."""
+    return tuple(8 * (kl // 8) + (2 * (kl % 8) if kl % 8 < 4
+                                  else 2 * (kl % 8) - 7)
+                 for kl in range(bk))
 
 
 @dataclasses.dataclass(frozen=True)
 class FlashGeometry:
-    """One launch: grid (q_tiles, B*H) of 256-thread CTAs."""
+    """One launch: grid (q_tiles, B*H) of CTAs of ``THREADS[dtype]``
+    threads, one warpgroup per 64 of a tile's ``bq`` query rows; block x
+    takes query tile q_tiles - 1 - x (the heaviest causal tiles first)."""
 
     B: int
     Sq: int
@@ -57,18 +93,30 @@ class FlashGeometry:
     KV: int
     hd: int
     causal: bool
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def bq(self) -> int:
+        return BQ[self.dtype]
+
+    @property
+    def bk(self) -> int:
+        return BK[self.dtype]
 
     @property
     def q_tiles(self) -> int:
-        return -(-self.Sq // BQ)
+        return -(-self.Sq // self.bq)
 
     @property
     def grid(self) -> tuple[int, int]:
         return self.q_tiles, self.B * self.H
 
+    def tile_of_block(self, x: int) -> int:
+        return self.q_tiles - 1 - x
+
     @property
     def smem(self) -> int:
-        return 4 * (2 * self.hd * LDT + BK * LDS + 3 * BQ)
+        return smem_bytes(self.hd, self.dtype)
 
     def kv_head(self, h: int) -> int:
         return h // (self.H // self.KV)
@@ -79,18 +127,20 @@ class FlashGeometry:
         causal tile whose every row sees key 0 stops after its last visible
         key; a tile holding a row with no visible key (Sq > Sk) walks them
         all, since that row averages every key."""
-        n, diag = -(-self.Sk // BK), self.Sk - self.Sq
+        bq, bk = self.bq, self.bk
+        n, diag = -(-self.Sk // bk), self.Sk - self.Sq
         tiles = []
-        for q0 in range(0, self.Sq, BQ):
-            last = min(q0 + BQ, self.Sq) - 1 + diag
+        for q0 in range(0, self.Sq, bq):
+            last = min(q0 + bq, self.Sq) - 1 + diag
             causal_stop = self.causal and q0 + diag >= 0
-            tiles.append(min(n, last // BK + 1) if causal_stop else n)
+            tiles.append(min(n, last // bk + 1) if causal_stop else n)
         return tuple(tiles)
 
 
-def plan_flash(q_shape, k_shape, *, causal: bool = True) -> FlashGeometry:
-    """The launch geometry of one call; raises on shapes the kernel does
-    not take."""
+def plan_flash(q_shape, k_shape, *, causal: bool = True,
+               dtype: torch.dtype = torch.float32) -> FlashGeometry:
+    """The launch geometry of one call in storage ``dtype``; raises on
+    shapes the kernel does not take."""
     B, Sq, H, hd = (int(d) for d in q_shape)
     Bk, Sk, KV, hdk = (int(d) for d in k_shape)
     if Bk != B or hdk != hd:
@@ -107,7 +157,9 @@ def plan_flash(q_shape, k_shape, *, causal: bool = True) -> FlashGeometry:
     if B * H > GRID_Y_MAX:
         raise ValueError(f"flash_attention: B*H = {B * H} exceeds the grid "
                          f"limit {GRID_Y_MAX}")
-    return FlashGeometry(B, Sq, Sk, H, KV, hd, bool(causal))
+    if dtype not in BK:
+        raise ValueError(f"flash_attention: no kernel for {dtype}")
+    return FlashGeometry(B, Sq, Sk, H, KV, hd, bool(causal), dtype)
 
 
 @functools.lru_cache(maxsize=256)
@@ -118,18 +170,26 @@ def _k_tile_table(g: FlashGeometry, device: torch.device) -> torch.Tensor:
 
 
 def _library():
-    """The kernel library, its compiled tile constants checked against the
-    planner's on first load."""
+    """The kernel library, its compiled tile constants and shared bytes
+    checked against the planner's on first load."""
     global _tiles_checked
     lib = _build.library("flash_attention", _SIGNATURES)
     if not _tiles_checked:
-        got = (ctypes.c_int * 5)()
+        got = (ctypes.c_int * 10)()
         lib.flash_attention_tiles(got)
-        if tuple(got) != (BQ, BK, LDT, LDS, THREADS):
+        if tuple(got) != tile_constants():
             raise RuntimeError(
-                f"flash_attention: the kernel is compiled with (BQ, BK, LDT, "
-                f"LDS, THREADS) = {tuple(got)}, the planner has "
-                f"{(BQ, BK, LDT, LDS, THREADS)}")
+                f"flash_attention: the kernel is compiled with (BQ, BK, "
+                f"THREADS, NKSLOT of fp32 and of bf16, NVSLOT, VPAD) = "
+                f"{tuple(got)}, the planner has {tile_constants()}")
+        for dtype, code in _build.DTYPE_CODE.items():
+            for hd in range(HD_STEP, MAX_HD + 1, HD_STEP):
+                kernel = lib.flash_attention_smem(code, hd)
+                if kernel != smem_bytes(hd, dtype):
+                    raise RuntimeError(
+                        f"flash_attention: the kernel takes {kernel} shared "
+                        f"bytes at hd {hd} {dtype}, the planner "
+                        f"{smem_bytes(hd, dtype)}")
         _tiles_checked = True
     return lib
 
@@ -144,12 +204,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if v.shape != k.shape:
         raise ValueError(f"flash_attention: v {tuple(v.shape)} != k "
                          f"{tuple(k.shape)}")
-    g = plan_flash(q.shape, k.shape, causal=causal)
+    g = plan_flash(q.shape, k.shape, causal=causal, dtype=q.dtype)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     o = torch.empty_like(q)
+    _build.check_aligned("flash_attention", {"q": q, "k": k, "v": v, "o": o},
+                         ALIGN)
     lib = _library()
     with torch.cuda.device(q.device):
         k_tiles = _k_tile_table(g, q.device)
