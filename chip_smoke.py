@@ -10,8 +10,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    source, all at once); every dense conv instantiation and every flash
    attention one must hold tensor-core ``HGMMA``s (wgmma) in its SASS,
    every SSD product kernel (chunk states, outputs) ``HMMA``s
-   (mma.sync); no depthwise conv, flash or SSD kernel may have a stack
-   frame or spill (``-Xptxas -v``, ``cuobjdump -sass``);
+   (mma.sync); no depthwise conv, flash, WKV or SSD kernel may have a
+   stack frame or spill (``-Xptxas -v``, ``cuobjdump -sass``);
 3. hold the conv kernels against their plain PyTorch version at every
    distinct conv (and fused conv+act+pool) shape of AlexNet, VGG16 and
    MobileNetV2 at 224 px, batch 1, of AlexNet and MobileNetV2 at batch
@@ -45,17 +45,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
    heads over 8 kv heads, hd 128) and Zamba2-7B's shared attention (32
    heads, hd 112) with Sq = Sk = 2048, and at Qwen3-4B's with Sq 128
    against Sk 2048; ``rwkv6_wkv`` at RWKV6-7B's (64 heads of 64) with T =
-   2000, so that the padding runs; ``mamba2_ssd`` at Zamba2-7B's (112
+   2000, whose last stage is partial; ``mamba2_ssd`` at Zamba2-7B's (112
    heads, hp 64, ds 64, B/C of 8 groups repeated to the heads) with T =
    2048.  Every kernel must have launched; every output is finite and of
    its shape;
 8. hold each sequence kernel against its plain version at every phase-7
    call and at the small shapes of ``tests/test_kernels.py``'s sweeps, a
-   causal Sq > Sk case (rows with no visible key average V) and a
-   ragged-T case: fp32 to 1e-4 of scale (flash, WKV) and 2e-4 (SSD),
-   bf16 to 2e-2 (flash, WKV) and 5e-2 (SSD), where the scale is each
-   output row's own (its largest |value| over the last dim, at least the
-   RMS of the whole output).
+   causal Sq > Sk case (rows with no visible key average V), ragged-T
+   cases, and WKV at hd 64 with T inside one stage of its plan and T not
+   a multiple of the plan's steps: fp32 to 1e-4 of scale (flash, WKV)
+   and 2e-4 (SSD), bf16 to 2e-2 (flash, WKV) and 5e-2 (SSD), where the
+   scale is each output row's own (its largest |value| over the last
+   dim, at least the RMS of the whole output).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without ``src/repro_torch`` beside it, the script exits
@@ -83,10 +84,11 @@ CONV_PEAK = {"fp32": 495e12 / 3, "bf16": 989e12}
 # bf16 P V runs a second bf16 pass for P's low half, which the bound
 # does not count: the function's operations at the bf16 rate); the SSD
 # runs TF32 passes in both storage dtypes (up to three, fewer where a
-# bf16 operand is exact); WKV runs on the CUDA cores.
+# bf16 operand is exact); WKV runs fp32 on the CUDA cores in both.
 MIXER_PEAK = {"flash_attention": CONV_PEAK,
               "mamba2_ssd": {"fp32": 495e12 / 3, "bf16": 495e12 / 3},
-              "rwkv6_wkv": PEAK_FLOPS}
+              "rwkv6_wkv": {"fp32": PEAK_FLOPS["fp32"],
+                            "bf16": PEAK_FLOPS["fp32"]}}
 TENSOR_CORE_MIXERS = ("flash_attention", "mamba2_ssd")
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
@@ -117,6 +119,14 @@ MIXER_TOL = {("flash_attention", "fp32"): 1e-4, ("rwkv6_wkv", "fp32"): 1e-4,
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -616,6 +626,21 @@ SMALL_MIXERS = [
 ]
 
 
+def wkv_stage_cases(torch, plan_wkv, hd):
+    """WKV at head dim ``hd`` with T inside one stage of the kernel's plan
+    and T past three stages but not a multiple of the plan's steps, in
+    both storage dtypes' plans."""
+    steps = [plan_wkv(1, 4096, 1, hd, d).steps
+             for d in (torch.float32, torch.bfloat16)]
+    short, ragged = min(steps) // 2 + 1, 3 * max(steps) + 5
+    check(short < min(steps) and all(ragged % s for s in steps),
+          f"WKV stage cases: T {short} and {ragged} against steps {steps}")
+    return [dict(kernel="rwkv6_wkv", label="T < a stage", B=2, T=short, H=8,
+                 hd=hd, block_t=64),
+            dict(kernel="rwkv6_wkv", label="T % steps", B=1, T=ragged, H=16,
+                 hd=hd, block_t=64)]
+
+
 def mixer_inputs(torch, case, dtype, gen, dev):
     """Seeded inputs on the card, made in fp32 and stored in ``dtype``."""
     F = torch.nn.functional
@@ -705,7 +730,7 @@ def phase_mixers(torch, kops, launches, cases, dev):
 # ---------------------------------------------------------------------------
 # Phase 8: sequence kernels vs plain
 # ---------------------------------------------------------------------------
-def phase_mixer_checks(torch, kops, ref, cases, inputs, outs, dev):
+def phase_mixer_checks(torch, kops, ref, cases, inputs, outs, small, dev):
     worst, worst_rel = {}, {}
     rows = []
 
@@ -725,12 +750,12 @@ def phase_mixer_checks(torch, kops, ref, cases, inputs, outs, dev):
     for (i, d), args in inputs.items():
         hold(cases[i], d, outs[(i, d)], args)
     gen = torch.Generator(device=dev).manual_seed(5)
-    for case in SMALL_MIXERS:
+    for case in small:
         for d, tname in DTYPES:
             args = mixer_inputs(torch, case, getattr(torch, tname), gen, dev)
             hold(case, d, call_mixer(kops, case, args), args)
     # the Sq > Sk rows with no visible key: the mean of V, from the kernel
-    case = next(c for c in SMALL_MIXERS if c["label"] == "sq>sk causal")
+    case = next(c for c in small if c["label"] == "sq>sk causal")
     q, k, v = mixer_inputs(torch, case, torch.float32, gen, dev)
     y = call_mixer(kops, case, (q, k, v))
     blind = case["Sq"] - case["Sk"]
@@ -863,11 +888,17 @@ def phase_build(_build):
     print(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k}: {len(v)} B of log' for k, v in logs.items())})")
     report = {}
-    for src in ("conv2d", "flash_attention", "mamba2_ssd"):
+    for src in ("conv2d", "flash_attention", "rwkv6_wkv", "mamba2_ssd"):
         ptxas = _build.ptxas_report(logs[src])
         sass = _build.sass_report(_build._target(src))
         report[src] = {k: dict(ptxas.get(k, {}), **sass.get(k, {}))
                        for k in sorted(set(ptxas) | set(sass))}
+    for src, kernels in report.items():
+        print(f"phase 2: {src} kernels (registers/stack B/spill B/SASS/"
+              f"HGMMA/HMMA): " + ", ".join(
+                  f"{n} {r.get('registers', '?')}/{r.get('stack', '?')}/"
+                  f"{r.get('spill_stores', '?')}/{r['instructions']}/"
+                  f"{r['hgmma']}/{r['hmma']}" for n, r in kernels.items()))
     for name, r in report["conv2d"].items():
         if name.startswith("conv2d_dense_kernel"):
             check(r["hgmma"] > 0, f"{name}: no HGMMA in its SASS")
@@ -875,12 +906,13 @@ def phase_build(_build):
             check(r["stack"] == 0, f"{name}: {r['stack']} B stack frame")
     found = [n.split("<")[0] for kernels in report.values() for n in kernels]
     for name, want in (("conv2d_dense_kernel", 6), ("flash_kernel", 16),
-                       ("ssd_states_kernel", 2), ("ssd_output_kernel", 2),
-                       ("ssd_scan_kernel", 1)):
+                       ("wkv_kernel", 8), ("ssd_states_kernel", 2),
+                       ("ssd_output_kernel", 2), ("ssd_scan_kernel", 1)):
         check(found.count(name) == want, f"phase 2: {found.count(name)} "
               f"{name} instantiations named, not {want}")
-    flash = report["flash_attention"]
-    for name, r in list(flash.items()) + list(report["mamba2_ssd"].items()):
+    for name, r in [kv for src in ("flash_attention", "rwkv6_wkv",
+                                   "mamba2_ssd")
+                    for kv in report[src].items()]:
         check(r["stack"] == 0 and r["spill_stores"] == 0
               and r["spill_loads"] == 0,
               f"{name}: {r['stack']} B stack frame, spills "
@@ -889,12 +921,6 @@ def phase_build(_build):
             check(r["hgmma"] > 0, f"{name}: no HGMMA in its SASS")
         if name.startswith(("ssd_states_kernel", "ssd_output_kernel")):
             check(r["hmma"] > 0, f"{name}: no HMMA in its SASS")
-    for src, kernels in report.items():
-        print(f"phase 2: {src} kernels (registers/stack B/spill B/SASS/"
-              f"HGMMA/HMMA): " + ", ".join(
-                  f"{n} {r.get('registers', '?')}/{r.get('stack', '?')}/"
-                  f"{r.get('spill_stores', '?')}/{r['instructions']}/"
-                  f"{r['hgmma']}/{r['hmma']}" for n, r in kernels.items()))
     return logs, report
 
 
@@ -920,17 +946,14 @@ def main() -> int:
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import quant as kquant
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rwkv6_wkv import RWKV_HD
+    from repro_torch.kernels.rwkv6_wkv import RWKV_HD, plan_wkv
     from repro_torch.launch import serve
     from repro_torch.models import cnn, profiles
 
     t_start = time.perf_counter()
     strict_fp32()
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -949,8 +972,9 @@ def main() -> int:
     inputs, outs, mixer_counts = phase_mixers(torch, kops, launches, cases,
                                               dev)
     counts.update({n: mixer_counts[n] for n in MIXERS})
+    small = SMALL_MIXERS + wkv_stage_cases(torch, plan_wkv, RWKV_HD)
     mixer_worst, mixer_rows = phase_mixer_checks(torch, kops, ref, cases,
-                                                 inputs, outs, dev)
+                                                 inputs, outs, small, dev)
     worst.update(mixer_worst)
     print(f"phases 7-8: {time.perf_counter() - t0:.1f} s")
     agg, time_rows = phase_time(torch, F, cnn, kconv, kquant, ref,

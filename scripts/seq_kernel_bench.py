@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time the sequence kernels of one tree's ``repro_torch`` at the phase-7
 calls of ``chip_smoke.py``: flash attention (Qwen3-4B, Zamba2-7B, Qwen3-4B
-with Sq 128) and the Mamba2 SSD (Zamba2-7B), fp32 and bf16, batch 2,
-2048 tokens; CUDA-graph replays timed with CUDA events, warm L2, then
-each call traced with ``torch.profiler`` for its kernels' own device
-times (the SSD's three passes apart).
+with Sq 128), the RWKV6 WKV (RWKV6-7B, T 2000) and the Mamba2 SSD
+(Zamba2-7B), fp32 and bf16, batch 2, through ``repro_torch.kernels.ops``;
+CUDA-graph replays timed with CUDA events, warm L2, then each call traced
+with ``torch.profiler`` for the device time of every kernel it launches
+(the SSD's three passes apart, and any padding copy apart from the WKV
+kernel).
 
     python3 scripts/seq_kernel_bench.py [--src DIR] [--label NAME]
 
@@ -20,7 +22,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,14 +49,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = cs.card_line()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    cases = [c for c in cs.mixer_cases(configs, RWKV_HD)
-             if c["kernel"] in cs.TENSOR_CORE_MIXERS]
+    cases = cs.mixer_cases(configs, RWKV_HD)
     ms, kernel_ms = {}, {}
     for case in cases:
         for d, tname in cs.DTYPES:
@@ -77,7 +74,7 @@ def main() -> int:
                               if e.device_time_total > 0}
     out = dict(label=args.label, src=os.path.abspath(args.src), card=card,
                ms=ms, kernel_ms=kernel_ms)
-    for kernel in cs.TENSOR_CORE_MIXERS:
+    for kernel in cs.MIXERS:
         for d, _ in cs.DTYPES:
             out[f"{kernel} {d} total"] = sum(
                 v for k, v in ms.items()

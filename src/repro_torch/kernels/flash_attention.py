@@ -6,8 +6,9 @@ and k, v (B, Sk, KV, hd) in fp32 or bf16, online softmax in fp32, causal
 masking end-aligned with a finite mask value, output in q's dtype.  On a
 CUDA tensor it launches ``csrc/flash_attention.cu``, which reads K/V head
 ``h // (H // KV)`` for query head h (no repeat is materialised).  On a CPU
-tensor it runs ``ref.attention_plain``.  There is no fallback between the
-two: a CUDA tensor the kernel does not take raises.
+tensor it runs ``ref.attention_plain`` at any head dim, as the JAX
+reference does; only the CUDA path plans tiles.  There is no fallback
+between the two: a CUDA tensor the kernel does not take raises.
 
 ``plan_flash`` is the launch geometry in plain Python -- query tiles, key
 tiles, how many key tiles each query tile walks, shared memory -- and the
@@ -137,10 +138,9 @@ class FlashGeometry:
         return tuple(tiles)
 
 
-def plan_flash(q_shape, k_shape, *, causal: bool = True,
-               dtype: torch.dtype = torch.float32) -> FlashGeometry:
-    """The launch geometry of one call in storage ``dtype``; raises on
-    shapes the kernel does not take."""
+def check_shapes(q_shape, k_shape) -> tuple[int, ...]:
+    """(B, Sq, Sk, H, KV, hd) of q (B, Sq, H, hd) and k (B, Sk, KV, hd);
+    raises on shapes the function itself refuses, on any device."""
     B, Sq, H, hd = (int(d) for d in q_shape)
     Bk, Sk, KV, hdk = (int(d) for d in k_shape)
     if Bk != B or hdk != hd:
@@ -151,6 +151,14 @@ def plan_flash(q_shape, k_shape, *, causal: bool = True,
     if H % KV:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {KV} kv heads")
+    return B, Sq, Sk, H, KV, hd
+
+
+def plan_flash(q_shape, k_shape, *, causal: bool = True,
+               dtype: torch.dtype = torch.float32) -> FlashGeometry:
+    """The launch geometry of one call in storage ``dtype``; raises on
+    shapes the kernel does not take."""
+    B, Sq, Sk, H, KV, hd = check_shapes(q_shape, k_shape)
     if hd % HD_STEP or not HD_STEP <= hd <= MAX_HD:
         raise ValueError(f"flash_attention: head dim {hd} is not a multiple "
                          f"of {HD_STEP} up to {MAX_HD}")
@@ -204,11 +212,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if v.shape != k.shape:
         raise ValueError(f"flash_attention: v {tuple(v.shape)} != k "
                          f"{tuple(k.shape)}")
-    g = plan_flash(q.shape, k.shape, causal=causal, dtype=q.dtype)
+    check_shapes(q.shape, k.shape)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    g = plan_flash(q.shape, k.shape, causal=causal, dtype=q.dtype)
     o = torch.empty_like(q)
     _build.check_aligned("flash_attention", {"q": q, "k": k, "v": v, "o": o},
                          ALIGN)

@@ -3,9 +3,10 @@
 
 They do what the JAX package's wrappers do around its Pallas kernels --
 refuse sequence lengths that are not block multiples (flash attention),
-pad T with identity decay (WKV) or zeros (SSD) and slice the result back
--- and hand the work to the kernel modules, which launch the CUDA kernel
-for a CUDA tensor and run the plain PyTorch version for a CPU tensor.
+pad T with zeros (SSD) and slice the result back; WKV needs no padding,
+since its kernel takes any T -- and hand the work to the kernel modules,
+which launch the CUDA kernel for a CUDA tensor and run the plain PyTorch
+version for a CPU tensor.
 There is no execution-mode knob: the tensor's device decides.  GQA needs
 no repeat here: the flash kernel reads K/V head ``h // (H // KV)``.
 
@@ -40,16 +41,18 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def rwkv6_wkv(r, k, v, w, u, *, block_t: int = 64) -> torch.Tensor:
-    """r, k, v, w: (B, T, H, hd); u: (H, hd).  T is padded to a multiple
-    of ``block_t`` (decay 1, so the padded steps leave the state alone) and
-    the output sliced back to T."""
+    """r, k, v, w: (B, T, H, hd); u: (H, hd).
+
+    ``block_t`` is the JAX wrapper's time block, kept for its signature
+    and its check.  The JAX wrapper pads T to a multiple of it with decay 1
+    (and k = v = 0) and slices the output back; those steps come after
+    every real one and cannot change an output before T.  The kernel and
+    the plain version take any T, so nothing is padded here and the
+    result is the one the padding gives."""
     if block_t < 1:
         raise ValueError(f"rwkv6_wkv: block_t must be positive, got "
                          f"{block_t}")
-    T = r.shape[1]
-    out = _wkv.rwkv6_wkv(pad_time(r, block_t), pad_time(k, block_t),
-                         pad_time(v, block_t), pad_time(w, block_t, 1.0), u)
-    return out[:, :T]
+    return _wkv.rwkv6_wkv(r, k, v, w, u)
 
 
 def mamba2_ssd(x, dt, A, B, C, *, chunk: int = 64) -> torch.Tensor:

@@ -142,14 +142,13 @@ def rwkv6_wkv_plain(r, k, v, w, u) -> torch.Tensor:
     return out.to(r.dtype)
 
 
-def pad_time(t: torch.Tensor, mult: int, value: float = 0.0) -> torch.Tensor:
-    """``t`` (B, T, ...) padded along T with ``value`` to a multiple of
-    ``mult``."""
+def pad_time(t: torch.Tensor, mult: int) -> torch.Tensor:
+    """``t`` (B, T, ...) zero-padded along T to a multiple of ``mult``."""
     pad = (-t.shape[1]) % mult
     if pad == 0:
         return t
-    fill = torch.full((t.shape[0], pad, *t.shape[2:]), value, dtype=t.dtype,
-                      device=t.device)
+    fill = torch.zeros((t.shape[0], pad, *t.shape[2:]), dtype=t.dtype,
+                       device=t.device)
     return torch.cat([t, fill], dim=1)
 
 

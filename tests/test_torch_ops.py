@@ -884,6 +884,203 @@ def test_ssd_param_fields_match_the_cuda_enum():
 
 
 # ---------------------------------------------------------------------------
+# The CUDA WKV kernel's geometry, on the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", kwkv.HEAD_DIMS)
+def test_wkv_plan_fits_and_covers_every_column_once(hd, dtype):
+    """The default plan at every head dim: shared memory within a CTA's
+    227 KB and two CTAs an SM, whole warps, and a grid whose blocks take
+    each (b, h, column) once, the lanes of a column each of its rows
+    once."""
+    B, H = 2, 3
+    p = kwkv.plan_wkv(B, 100, H, hd, _TDT[dtype])
+    assert p.smem <= 227 * 1024 and p.ctas_per_sm >= 2
+    assert 2 * (p.smem + 1024) <= 228 * 1024
+    assert p.threads % 32 == 0 and p.threads <= kwkv.MAX_THREADS
+    assert p.jc * p.esize % 16 == 0 and p.stages >= 2
+    cover = np.zeros((B, H, hd), dtype=int)
+    for x in range(p.grid):
+        b, h, j0 = p.block(x)
+        cover[b, h, j0:j0 + p.jc] += 1
+    assert (cover == 1).all()
+    # the CTAs of one head are adjacent (they share r, k and w in L2)
+    assert [p.block(x)[:2] for x in range(p.col_blocks)] == [(0, 0)] * \
+        p.col_blocks
+    rows = sorted(i for q in range(p.lanes) for i in p.rows_of(q))
+    assert rows == list(range(hd))
+    assert p.jc % p.cols == 0
+
+
+@pytest.mark.parametrize("shape, geometry, match", [
+    ((1, 8, 2, 48), {}, "head dims"),
+    ((1, 8, 2, 8), {}, "head dims"),
+    ((1, 8, 2, 256), {}, "head dims"),
+    ((1, 8, 2, 64), dict(jc=24), "columns a CTA"),
+    ((1, 8, 2, 64), dict(jc=2), "columns a CTA"),
+    ((1, 8, 2, 64), dict(jc=6), "columns a CTA"),
+    ((1, 8, 2, 64), dict(jc=128), "columns a CTA"),
+    ((1, 8, 2, 64), dict(jc=4), "whole warps"),
+    ((1, 8, 2, 128), dict(jc=128), "whole warps"),
+    ((1, 8, 2, 64), dict(stages=5), "stages"),
+    ((1, 8, 2, 64), dict(stages=1), "stages"),
+    ((1, 8, 2, 64), dict(steps=0), "stages"),
+    ((1, 8, 2, 64), dict(steps=64), "two CTAs an SM"),
+])
+def test_wkv_plan_refuses_what_the_kernel_does_not_take(shape, geometry,
+                                                        match, monkeypatch):
+    """Head dims the kernel is not built for, and run-time geometries (as
+    ``scripts/wkv_sweep.py`` sets them in ``DEFAULTS``) it does not take
+    with the fp32 tile."""
+    if geometry:
+        _set_wkv_defaults(monkeypatch, shape[3], torch.float32, **geometry)
+    with pytest.raises(ValueError, match=match):
+        kwkv.plan_wkv(*shape)
+
+
+def _set_wkv_defaults(monkeypatch, hd, dtype, **geometry):
+    key = (hd, dtype)
+    given = dict(zip(("jc", "steps", "stages"), kwkv.DEFAULTS[key]))
+    given.update(geometry)
+    monkeypatch.setitem(kwkv.DEFAULTS, key, tuple(given.values()))
+
+
+def test_wkv_plan_bf16_needs_sixteen_byte_column_runs(monkeypatch):
+    """Four columns a CTA are 16 bytes of fp32 (refused only for its
+    threads) but 8 of bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        _set_wkv_defaults(monkeypatch, 128, dtype, jc=4)
+    with pytest.raises(ValueError, match="whole warps"):
+        kwkv.plan_wkv(1, 8, 2, 128, torch.float32)
+    with pytest.raises(ValueError, match="16-byte runs"):
+        kwkv.plan_wkv(1, 8, 2, 128, torch.bfloat16)
+
+
+def test_wkv_tiles_match_the_cuda_table():
+    """The tile a thread holds is compiled per (hd, dtype): the Python
+    ``TILES`` and the CUDA source's table agree, at every head dim."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "rwkv6_wkv.cu").read_text()
+    body = re.search(r"constexpr int TILES\[4\]\[5\] = \{(.*?)\};", src,
+                     re.S).group(1)
+    table = {}
+    for hd, rf, cf, rb, cb in (map(int, row.split(",")) for row in
+                               re.findall(r"\{([^{}]*)\}", body)):
+        table[hd, torch.float32] = (rf, cf)
+        table[hd, torch.bfloat16] = (rb, cb)
+    assert table == kwkv.TILES
+    assert set(kwkv.DEFAULTS) == set(kwkv.TILES) == {
+        (hd, d) for hd in kwkv.HEAD_DIMS for d in kwkv.ESIZE}
+
+
+def _wkv_walk(plan, r, k, v, w, u):
+    """The CUDA kernel's walk in torch ops: per column block, stages of
+    ``plan.steps`` steps staged in the stored dtype and widened (the last
+    one partial: only its steps before T run); the bonus factored out, so
+    each lane sums r_i S_ij over its rows of a column into two
+    accumulators (even and odd rows of each float4 chunk, chunk by chunk,
+    then added), the lanes' partials are added after the stage, lane 0
+    first, and v_j sum_i r_i u_i k_i is added last; out in r's dtype."""
+    B, T, H, hd = r.shape
+    nm, lanes, jc = plan.rows // 4, plan.lanes, plan.jc
+    out = torch.zeros(B, T, H, hd, dtype=torch.float32)
+    uf = u.float()[None]
+    for x in range(plan.col_blocks):
+        j0 = x * jc
+        S = torch.zeros(B, H, hd, jc)
+        for s in range(plan.n_stages):
+            t0 = s * plan.steps
+            # the ring slot: steps past T are zero-filled, and never run
+            slot = [torch.zeros(B, plan.steps, H, n, dtype=r.dtype)
+                    for n in (hd, hd, hd, jc)]
+            tn = min(plan.steps, T - t0)
+            for dst, src in zip(slot, (r, k, w, v[..., j0:j0 + jc])):
+                dst[:, :tn] = src[:, t0:t0 + tn]
+            rs, ks, ws, vs = (a.float() for a in slot)
+            for tt in range(tn):
+                c = rs[:, tt, :, :, None] * S
+                S = S * ws[:, tt, :, :, None] + (ks[:, tt, :, :, None]
+                                                 * vs[:, tt, :, None, :])
+                # row i = 4 (q + lanes m) + e  ->  (m, q, e)
+                c = c.reshape(B, H, nm, lanes, 4, jc)
+                acc = [c[:, :, 0, :, 0], c[:, :, 0, :, 1]]
+                for m in range(nm):
+                    for e in range(2 if m == 0 else 0, 4):
+                        acc[e % 2] = acc[e % 2] + c[:, :, m, :, e]
+                part = acc[0] + acc[1]                  # (B, H, lanes, jc)
+                o = torch.zeros(B, H, jc)
+                for q in range(lanes):
+                    o = o + part[:, :, q]
+                bonus = (rs[:, tt] * uf * ks[:, tt]).sum(-1)     # (B, H)
+                out[:, t0 + tt, :, j0:j0 + jc] = \
+                    o + bonus[..., None] * vs[:, tt]
+    return out.to(r.dtype)
+
+
+# (B, T, H, hd): T inside one stage, T not a multiple of the steps, and
+# phase 7's T = 2000, at RWKV6's hd and small B*H; then phase 8's small
+# WKV shapes (test_kernels.py's sweep and its ragged T)
+WKV_WALK = [(2, 5, 2, 64), (1, 75, 2, 64), (1, 2000, 1, 64),
+            (2, 128, 2, 32), (1, 96, 4, 64), (3, 64, 1, 16), (1, 50, 2, 16)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", WKV_WALK, ids=str)
+def test_wkv_column_walk_reproduces_plain_and_the_jax_oracle(case, dtype):
+    """The walk agrees with the plain version and the JAX reference (the
+    TPU body's form) at ``test_kernels.py``'s tolerance, and in fp32 the
+    factored bonus stays within 1e-4 of each row's scale, phase 8's
+    limit, on phase 8's input distributions."""
+    B, T, H, hd = case
+    plan = kwkv.plan_wkv(B, T, H, hd, _TDT[dtype])
+    arrays = _wkv_inputs(20, B, T, H, hd)
+    pairs = [_pair(a, dtype) for a in arrays]
+    got = _wkv_walk(plan, *(p for _, p in pairs))
+    plain = kwkv.rwkv6_wkv(*(p for _, p in pairs))
+    want, _ = jref.rwkv6_wkv_ref(*(j for j, _ in pairs))
+    assert got.dtype == _TDT[dtype] and got.shape == (B, T, H, hd)
+    np.testing.assert_allclose(_np(got), _np(plain), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    if dtype == "fp32":
+        assert _row_rel_err(got, torch.from_numpy(_np(want))) <= 1e-4
+
+
+def test_wkv_walk_cases_cover_short_and_ragged_stages():
+    steps = kwkv.plan_wkv(1, 8, 1, 64).steps
+    assert WKV_WALK[0][1] < steps and WKV_WALK[1][1] % steps
+    assert WKV_WALK[2][1] == 2000
+
+
+# ---------------------------------------------------------------------------
+# The CPU path at head dims the CUDA kernels do not take
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("hd", [8, 24, 160])
+def test_cpu_flash_takes_any_head_dim(hd):
+    """The plain version computes what the reference computes at head
+    dims ``plan_flash`` refuses (it refuses them on the CUDA path only)."""
+    q, k, v = _attn_inputs(21, 1, 64, 64, 2, 2, hd)
+    got = ops.flash_attention_gqa(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  block_q=64, block_k=64)
+    want = jref.attention_ref(*(jnp.asarray(_bh(a)) for a in (q, k, v)))
+    np.testing.assert_allclose(_bh(got.numpy()), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kfa.plan_flash(q.shape, k.shape)
+
+
+@pytest.mark.parametrize("hd", [8, 48])
+def test_cpu_wkv_takes_any_head_dim(hd):
+    arrays = _wkv_inputs(22, 1, 32, 2, hd)
+    got = ops.rwkv6_wkv(*(torch.from_numpy(a) for a in arrays), block_t=32)
+    want, _ = jref.rwkv6_wkv_ref(*(jnp.asarray(a) for a in arrays))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    with pytest.raises(ValueError, match="head dims"):
+        kwkv.plan_wkv(1, 32, 2, hd)
+
+
+# ---------------------------------------------------------------------------
 # ops-level padding, GQA and argument checks
 # ---------------------------------------------------------------------------
 def test_wkv_padding_leaves_the_first_t_steps_alone():
@@ -940,7 +1137,7 @@ def test_ops_refuse_what_the_jax_wrappers_refuse():
 def test_wrappers_reject_inputs_the_kernels_do_not_take():
     q = torch.zeros(1, 64, 2, 32)
     with pytest.raises(ValueError):                   # hd not a multiple of 16
-        kfa.flash_attention(*(torch.zeros(1, 64, 2, 24),) * 3)
+        kfa.plan_flash((1, 64, 2, 24), (1, 64, 2, 24))
     with pytest.raises(TypeError):
         kfa.flash_attention(q, q.to(torch.bfloat16), q)
     with pytest.raises(TypeError):
@@ -953,7 +1150,7 @@ def test_wrappers_reject_inputs_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         kwkv.rwkv6_wkv(r, r, r, r, torch.zeros(3, 16))
     with pytest.raises(ValueError):                   # hd 48: no kernel
-        kwkv.rwkv6_wkv(*(torch.zeros(1, 8, 2, 48),) * 4, torch.zeros(2, 48))
+        kwkv.plan_wkv(1, 8, 2, 48)
     x, dt = torch.zeros(1, 64, 2, 16), torch.zeros(1, 64, 2)
     bc, A = torch.zeros(1, 64, 2, 8), torch.zeros(2)
     with pytest.raises(ValueError):                   # T % chunk
