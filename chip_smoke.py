@@ -10,8 +10,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    source, all at once); every dense conv instantiation and every flash
    attention one must hold tensor-core ``HGMMA``s (wgmma) in its SASS,
    every SSD product kernel (chunk states, outputs) ``HMMA``s
-   (mma.sync); no depthwise conv, flash, WKV or SSD kernel may have a
-   stack frame or spill (``-Xptxas -v``, ``cuobjdump -sass``);
+   (mma.sync); no depthwise conv, flash, WKV, SSD, quantize or
+   dequantize kernel may have a stack frame or spill (``-Xptxas -v``,
+   ``cuobjdump -sass``);
 3. hold the conv kernels against their plain PyTorch version at every
    distinct conv (and fused conv+act+pool) shape of AlexNet, VGG16 and
    MobileNetV2 at 224 px, batch 1, of AlexNet and MobileNetV2 at batch
@@ -19,8 +20,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    and bf16 (2e-2 of scale); outside VGG16 every fused conv equals the
    unfused conv followed by its activation and pool, bitwise, and at
    every shape a batch-4 launch equals four batch-1 launches, bitwise;
-4. hold the int8 codec against its plain version, bitwise, at every
-   boundary shape the main path's plans pick and a flat (4, 4096);
+4. hold the int8 codec against its plain version, bitwise, fp32 and
+   bf16, at every boundary shape the main path's plans pick (batch-1
+   microbatches), at every batch-4 boundary of every model's int8 plans
+   (K 2 and 3), at the per-tensor flattens (4, 4096) and (4, 9216), and at
+   a shape where the quantize planner takes a cluster of 4: every cluster
+   size 1, 2, 4, 8 must be checked, the flattens and (4, 32, 28, 28) must
+   take more than one CTA a group, and every slice must be held in
+   registers (x read once);
 5. the main path: ``repro_torch.launch.serve.serve_cnn`` for AlexNet and
    MobileNetV2 at 224 px, batch 4 -- K=2 with the follow wire, K=3 with
    M=4 and the int8 wire, and K=3 with M=4 under 30% drops -- with the
@@ -35,7 +42,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``F.scaled_dot_product_attention`` for flash attention, fp32 and bf16,
    each checked against the kernel first, with an explicit end-aligned
    mask where Sq < Sk; none for WKV and SSD) at the
-   main paths' shapes (CUDA graphs of
+   main paths' shapes -- the codec, fp32 and bf16, at phase 4's
+   microbatch and batch-4 boundaries and flattens, each with its bound
+   -- (CUDA graphs of
    back-to-back launches, CUDA events, warm L2, in turns), and print one
    ``{"kernels": [...]}`` JSON line with each kernel's launches, error,
    times and bound.  It runs last, since it times phase 7's shapes too;
@@ -256,26 +265,48 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
 # ---------------------------------------------------------------------------
 # Phase 4: codec vs plain
 # ---------------------------------------------------------------------------
-def boundary_shapes(cnn, core, profiles, batch=4, microbatches=4):
-    """Boundary shapes of the int8 plans the main path runs."""
+def boundary_shapes(cnn, core, profiles, batch=4, microbatches=4,
+                    models=("alexnet", "mobilenetv2"), tiers=(3,)):
+    """Boundary shapes of the int8 plans of ``models`` at ``batch`` split
+    into ``microbatches``, over ``tiers`` (the main path's: K=3, M=4)."""
     shapes = set()
-    for name in ("alexnet", "mobilenetv2"):
+    for name in models:
         prof = profiles.cnn_profile(name, batch=batch)
-        plan = core.smartsplit_chain(prof, core.paper_chain(3),
-                                     microbatches=microbatches, wire="int8")
         outs = cnn.shapes_through(cnn.CNN_MODELS[name])
         mb = -(-batch // microbatches)
-        for cut in plan.cuts:
-            shapes.add((mb,) + tuple(outs[cut - 1]))
+        for k in tiers:
+            plan = core.smartsplit_chain(prof, core.paper_chain(k),
+                                         microbatches=microbatches,
+                                         wire="int8")
+            for cut in plan.cuts:
+                shapes.add((mb,) + tuple(outs[cut - 1]))
     return sorted(shapes)
+
+
+def codec_shapes(cnn, core, profiles):
+    """The codec's checked and timed shapes: the main path's microbatch
+    boundaries; every batch-4 boundary of the int8 plans of every model
+    (K 2 and 3, unsplit batch); the per-tensor flattens of AlexNet and VGG's
+    heads; and one shape where the planner takes k = 4, which no boundary
+    above reaches."""
+    micro = boundary_shapes(cnn, core, profiles)
+    batch4 = boundary_shapes(cnn, core, profiles, microbatches=1,
+                             models=tuple(cnn.CNN_MODELS), tiers=(2, 3))
+    return micro, batch4 + [(4, 4096), (4, 9216)], [(4, 32, 56, 56)]
+
+
+def quant_plan_of(kquant, torch, shape, dtype):
+    axis = kquant.default_channel_axis(len(shape))
+    return kquant.plan_quantize(*kquant._bcs(tuple(shape), axis), dtype)
 
 
 def phase_codec(torch, kquant, ref, shapes, dev):
     """Returns the measured max |kernel - plain| of each codec and input
     dtype: the int8 values' and the scales' for quantize, the decoded
-    values' for dequantize (0 when bitwise equal, which is checked)."""
+    values' for dequantize (0 when bitwise equal, which is checked), and
+    the quantize plan (cluster size k, staged) of each shape."""
     gen = torch.Generator().manual_seed(2)
-    worst = {}
+    worst, plans = {}, {}
     for shape in shapes:
         for dname, dtype in (("fp32", torch.float32),
                              ("bf16", torch.bfloat16)):
@@ -295,10 +326,25 @@ def phase_codec(torch, kquant, ref, shapes, dev):
                   f"quantize {tuple(shape)} {dtype} differs from plain")
             check(torch.equal(d, pd),
                   f"dequantize {tuple(shape)} {dtype} differs from plain")
+            plan = quant_plan_of(kquant, torch, shape, dtype)
+            plans[(tuple(shape), dname)] = dict(
+                k=plan.k, resident=plan.resident, vec=plan.vec,
+                threads=plan.threads)
+            check(plan.resident, f"quantize {tuple(shape)} {dname}: x read "
+                  f"twice (the slice is not held in registers)")
     torch.cuda.synchronize()
-    print(f"phase 4: codec bitwise equal to the plain version at "
-          f"{[tuple(s) for s in shapes]}, fp32 and bf16")
-    return worst
+    ks = sorted({p["k"] for p in plans.values()})
+    check(ks == [1, 2, 4, 8], f"phase 4: cluster sizes {ks} checked, not "
+          f"each of 1, 2, 4, 8")
+    for shape in ((4, 4096), (4, 9216), (4, 32, 28, 28)):
+        check(plans[(shape, "fp32")]["k"] > 1,
+              f"quantize {shape}: a cluster of one CTA")
+    print(f"phase 4: codec bitwise equal to the plain version, fp32 and "
+          f"bf16, at (shape: cluster k) " + ", ".join(
+              f"{s}: {plans[(s, 'fp32')]['k']}"
+              for s in map(tuple, shapes)) + "; every slice held in "
+          "registers")
+    return worst, plans
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +517,78 @@ def conv_bound(call, dtype):
     return flops / rate, nbytes / PEAK_BYTES, flops / PEAK_FLOPS["fp32"]
 
 
+def codec_bound(n, groups, esize):
+    """(operations time, bytes time) in seconds of quantize and dequantize
+    of n elements in ``groups`` scale groups, storage ``esize`` bytes:
+    quantize reads x, writes q and the scales, ~5 fp32 operations an
+    element (abs, max, divide, round, clip); dequantize reads q and the
+    scales, writes the storage dtype, one multiply an element."""
+    return {"quantize": (5 * n / PEAK_FLOPS["fp32"],
+                         (esize * n + n + 4 * groups) / PEAK_BYTES),
+            "dequantize": (n / PEAK_FLOPS["fp32"],
+                           (n + 4 * groups + esize * n) / PEAK_BYTES)}
+
+
+def codec_time(torch, kquant, ref, shape, dname, dtype, gen, dev, agg, rows):
+    """Kernel, plain and ``torch.mul`` times of quantize and dequantize at
+    one shape and storage dtype; adds a row each and, in fp32, to the
+    kernels line's sums (bf16 to its *_bf16 sums)."""
+    x = (3 * torch.randn(shape, generator=gen)).to(dtype).to(dev)
+    axis = kquant.default_channel_axis(x.ndim)
+    q, s = kquant.quantize_boundary(x)
+    # dequantize's library call: one broadcast multiply; int8 * fp32
+    # promotes to fp32 and rounds the product once, as the kernel does
+    # (quantize has none: torch.quantize_per_channel takes the scales as
+    # given and multiplies by their reciprocal).  It writes fp32 at either
+    # storage dtype: a bf16 result takes a second call.
+    s_b = s.view([-1 if d == axis else 1 for d in range(x.ndim)])
+    check(torch.equal(torch.mul(q, s_b), kquant.dequantize_boundary(q, s)),
+          f"torch.mul dequantize {tuple(shape)} differs from the kernel")
+    t = in_turns({
+        "q_ms": Timer(torch, lambda: kquant.quantize_boundary(x)),
+        "q_plain_ms": Timer(torch, lambda: ref.quantize_plain(x, axis)),
+        "d_ms": Timer(torch, lambda: kquant.dequantize_boundary(
+            q, s, out_dtype=dtype)),
+        "d_plain_ms": Timer(torch, lambda: ref.dequantize_plain(
+            q, s, axis, dtype)),
+        "d_library_ms": Timer(torch, lambda: torch.mul(q, s_b))})
+    t["q_library_ms"] = None
+    plan = quant_plan_of(kquant, torch, shape, dtype)
+    bounds = codec_bound(x.numel(), s.numel(), x.element_size())
+    for kind, key in (("quantize", "q"), ("dequantize", "d")):
+        t_f, t_b = bounds[kind]
+        lib = t[f"{key}_library_ms"]
+        row = dict(kernel=kind, dtype=dname, shape=list(shape),
+                   ms=t[f"{key}_ms"], plain_ms=t[f"{key}_plain_ms"],
+                   library_ms=lib, flop_ms=1e3 * t_f, byte_ms=1e3 * t_b,
+                   bound_ms=1e3 * max(t_f, t_b),
+                   **({"k": plan.k} if kind == "quantize" else {}))
+        rows.append(row)
+        a = agg.setdefault(kind, dict(
+            ms=0.0, plain_ms=0.0, library_ms=None if lib is None else 0.0,
+            flop_ms=0.0, byte_ms=0.0, bound_ms=0.0, calls=0, ms_bf16=0.0,
+            bound_ms_bf16=0.0,
+            library_ms_bf16=None if lib is None else 0.0))
+        if dname == "bf16":
+            a["ms_bf16"] += row["ms"]
+            a["bound_ms_bf16"] += row["bound_ms"]
+            if lib is not None:
+                a["library_ms_bf16"] += lib
+            continue
+        for k in ("ms", "plain_ms", "flop_ms", "byte_ms", "bound_ms"):
+            a[k] += row[k]
+        if lib is not None:
+            a["library_ms"] += lib
+        a["calls"] += 1
+    print(f"  codec {tuple(shape)} {dname} k={plan.k}: quantize "
+          f"{t['q_ms'] * 1e3:.2f} us (bound {bounds['quantize'][1] * 1e6:.2f}"
+          f", plain {t['q_plain_ms'] * 1e3:.2f}), dequantize "
+          f"{t['d_ms'] * 1e3:.2f} us (bound "
+          f"{bounds['dequantize'][1] * 1e6:.2f}, plain "
+          f"{t['d_plain_ms'] * 1e3:.2f}, torch.mul "
+          f"{t['d_library_ms'] * 1e3:.2f})")
+
+
 def phase_time(torch, F, cnn, kconv, kquant, ref, shapes, dev):
     gen = torch.Generator().manual_seed(3)
     calls = []
@@ -520,49 +638,10 @@ def phase_time(torch, F, cnn, kconv, kquant, ref, shapes, dev):
             a["bound_ms_cuda_cores"] += 1e3 * max(t_cc, t_b)
             a["calls"] += 1
     for shape in shapes:
-        x = (3 * torch.randn(shape, generator=gen)).to(dev)
-        axis = kquant.default_channel_axis(x.ndim)
-        q, s = kquant.quantize_boundary(x)
-        # dequantize's library call: one broadcast multiply; int8 * fp32
-        # promotes to fp32 and rounds the product once, as the kernel does
-        # (quantize has none: torch.quantize_per_channel takes the scales
-        # as given and multiplies by their reciprocal)
-        s_b = s.view([-1 if d == axis else 1 for d in range(x.ndim)])
-        check(torch.equal(torch.mul(q, s_b), kquant.dequantize_boundary(q, s)),
-              f"torch.mul dequantize {tuple(shape)} differs from the kernel")
-        t = in_turns({
-            "q_ms": Timer(torch, lambda: kquant.quantize_boundary(x)),
-            "q_plain_ms": Timer(torch, lambda: ref.quantize_plain(x, axis)),
-            "d_ms": Timer(torch, lambda: kquant.dequantize_boundary(q, s)),
-            "d_plain_ms": Timer(torch,
-                                lambda: ref.dequantize_plain(q, s, axis)),
-            "d_library_ms": Timer(torch, lambda: torch.mul(q, s_b))})
-        t["q_library_ms"] = None
-        n = x.numel()
-        groups = s.numel()
-        # quantize reads x, writes q and the scales; ~5 fp32 ops an
-        # element (abs, max, divide, round, clip); dequantize reads q
-        # and the scales, writes fp32, one multiply an element
-        for kind, key, nbytes, ops in (
-                ("quantize", "q", 4 * n + n + 4 * groups, 5 * n),
-                ("dequantize", "d", n + 4 * groups + 4 * n, n)):
-            t_f, t_b = ops / PEAK_FLOPS["fp32"], nbytes / PEAK_BYTES
-            lib = t[f"{key}_library_ms"]
-            a = agg.setdefault(kind, dict(
-                ms=0.0, plain_ms=0.0, library_ms=None if lib is None
-                else 0.0, flop_ms=0.0, byte_ms=0.0, bound_ms=0.0, calls=0))
-            a["ms"] += t[f"{key}_ms"]
-            a["plain_ms"] += t[f"{key}_plain_ms"]
-            if lib is not None:
-                a["library_ms"] += lib
-            a["flop_ms"] += 1e3 * t_f
-            a["byte_ms"] += 1e3 * t_b
-            a["bound_ms"] += 1e3 * max(t_f, t_b)
-            a["calls"] += 1
-            rows.append(dict(kernel=kind, shape=list(shape),
-                             ms=t[f"{key}_ms"],
-                             plain_ms=t[f"{key}_plain_ms"], library_ms=lib,
-                             flop_ms=1e3 * t_f, byte_ms=1e3 * t_b))
+        for dname, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            codec_time(torch, kquant, ref, shape, dname, dtype, gen, dev,
+                       agg, rows)
     return agg, rows
 
 
@@ -888,7 +967,8 @@ def phase_build(_build):
     print(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k}: {len(v)} B of log' for k, v in logs.items())})")
     report = {}
-    for src in ("conv2d", "flash_attention", "rwkv6_wkv", "mamba2_ssd"):
+    for src in ("conv2d", "flash_attention", "rwkv6_wkv", "mamba2_ssd",
+                "quant"):
         ptxas = _build.ptxas_report(logs[src])
         sass = _build.sass_report(_build._target(src))
         report[src] = {k: dict(ptxas.get(k, {}), **sass.get(k, {}))
@@ -907,11 +987,12 @@ def phase_build(_build):
     found = [n.split("<")[0] for kernels in report.values() for n in kernels]
     for name, want in (("conv2d_dense_kernel", 6), ("flash_kernel", 16),
                        ("wkv_kernel", 8), ("ssd_states_kernel", 2),
-                       ("ssd_output_kernel", 2), ("ssd_scan_kernel", 1)):
+                       ("ssd_output_kernel", 2), ("ssd_scan_kernel", 1),
+                       ("quantize_kernel", 6), ("dequantize_kernel", 4)):
         check(found.count(name) == want, f"phase 2: {found.count(name)} "
               f"{name} instantiations named, not {want}")
     for name, r in [kv for src in ("flash_attention", "rwkv6_wkv",
-                                   "mamba2_ssd")
+                                   "mamba2_ssd", "quant")
                     for kv in report[src].items()]:
         check(r["stack"] == 0 and r["spill_stores"] == 0
               and r["spill_loads"] == 0,
@@ -963,8 +1044,10 @@ def main() -> int:
             if "registers" in ln or "spill" in ln]
 
     worst, conv_rows = phase_conv(torch, F, cnn, kconv, ref, dev)
-    shapes = boundary_shapes(cnn, core, profiles) + [(4, 4096)]
-    worst.update(phase_codec(torch, kquant, ref, shapes, dev))
+    micro, batch4, extra = codec_shapes(cnn, core, profiles)
+    codec_worst, codec_plans = phase_codec(torch, kquant, ref,
+                                           micro + batch4 + extra, dev)
+    worst.update(codec_worst)
     counts, runs = phase_main(torch, cnn, serve, launches, kquant, runtime,
                               dev)
     cases = mixer_cases(configs, RWKV_HD)
@@ -978,7 +1061,7 @@ def main() -> int:
     worst.update(mixer_worst)
     print(f"phases 7-8: {time.perf_counter() - t0:.1f} s")
     agg, time_rows = phase_time(torch, F, cnn, kconv, kquant, ref,
-                                shapes[:-1], dev)
+                                micro + batch4, dev)
     t0 = time.perf_counter()
     mixer_agg, mixer_time_rows = phase_time_mixers(torch, F, kops, ref,
                                                    cases, inputs)
@@ -1005,6 +1088,8 @@ def main() -> int:
                                  "library_ms_bf16", "bound_ms_bf16")
                if k in a}})
     detail = dict(card=card, torch=torch.__version__, conv_checks=conv_rows,
+                  codec_plans=[dict(shape=list(k[0]), dtype=k[1], **v)
+                               for k, v in codec_plans.items()],
                   kernel_report=kernel_report,
                   mixer_checks=mixer_rows, runs=runs, timings=time_rows,
                   kernels=kernels, ptxas=regs,

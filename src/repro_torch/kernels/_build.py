@@ -92,14 +92,16 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
 def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every source whose library is missing, all ``nvcc`` runs
     at once.  Returns each build's compiler output (``-Xptxas -v``
-    register and shared-memory report); raises on a failed build."""
+    register and shared-memory report), kept beside the library so a
+    library built earlier returns its own; raises on a failed build."""
     with _lock:
         jobs = {n: _start(n) for n in names}
         logs = {}
         errors = []
         for name, job in jobs.items():
             if job is None:
-                logs[name] = "cached"
+                kept = _target(name).with_suffix(".log")
+                logs[name] = kept.read_text() if kept.exists() else "cached"
                 continue
             proc, tmp, out = job
             text, _ = proc.communicate()
@@ -107,6 +109,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
             if proc.returncode != 0:
                 errors.append(f"nvcc failed for {name}.cu:\n{text}")
                 continue
+            out.with_suffix(".log").write_text(text)
             os.replace(tmp, out)
         if errors:
             raise RuntimeError("\n".join(errors))

@@ -6,10 +6,12 @@ against them on the card.  On the card they must run with TF32 off
 (``torch.backends.cudnn.allow_tf32 = False``), or the fp32 conv drops to
 TF32 inside cuDNN.
 
-The codec versions are bitwise equal to ``quantize_jnp`` /
-``dequantize_jnp`` of the JAX package: the absmax, a true division by
-127 (a tensor divisor, never a Python scalar: PyTorch's CUDA division by
-a host scalar multiplies by its reciprocal), round-half-even, clip.
+The codec versions are bitwise equal to the JAX package's jitted
+``quantize_boundary`` / ``dequantize_boundary``, what its wire ships: the
+absmax, a scale of ``absmax * fl32(1/127)`` (XLA's rewrite of ``absmax /
+127``: one rounded multiply), then a true division by the scale (a
+tensor divisor, never a Python scalar: PyTorch's CUDA division by a host
+scalar multiplies by its reciprocal), round-half-even, clip.
 
 The sequence mixers (``attention_plain``, ``rwkv6_wkv_plain``,
 ``mamba2_ssd_plain``) compute what the JAX package's Pallas kernels
@@ -70,9 +72,13 @@ def quantize_plain(x, axis: int | None = None):
     return q.to(torch.int8), scale
 
 
+# fl32(1/127), the constant XLA multiplies by for ``absmax / 127``
+INV127 = float.fromhex("0x1.020408p-7")
+
+
 def _scale_of(absmax: torch.Tensor) -> torch.Tensor:
-    d = torch.full_like(absmax, 127.0)
-    return torch.where(absmax > 0.0, absmax / d, torch.ones_like(absmax))
+    inv = torch.full_like(absmax, INV127)
+    return torch.where(absmax > 0.0, absmax * inv, torch.ones_like(absmax))
 
 
 def dequantize_plain(values, scales, axis: int | None = None,

@@ -9,7 +9,12 @@ to it for the same host values:
   bfloat16, so the tensor is viewed as int16 on the way out and back);
 * ``int8`` ships a two-part ``pack_frames`` buffer of (fp32 per-channel
   scales, int8 values), whose per-part crc32s let the transfer layer
-  attribute corruption to the scales frame vs the data frame.
+  attribute corruption to the scales frame vs the data frame.  The codec
+  writes both parts into one buffer (``kernels.quant.quantize_packed``),
+  which crosses to the host in one asynchronous copy into pinned memory
+  and one wait on the stream; the decoder puts the two verified frames
+  into one pinned buffer of the same layout, which crosses back in one
+  copy that the dequantize kernel reads.
 
 ``decode_boundary`` restores the storage dtype on the encoding tensor's
 device; a fault-free encode/decode is bit-identical to
@@ -17,14 +22,15 @@ device; a fault-free encode/decode is bit-identical to
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core.dtype_policy import policy_torch_dtype
 from repro_torch.kernels.quant import (default_channel_axis,
-                                       dequantize_boundary,
-                                       quantize_boundary)
+                                       dequantize_packed, quantize_packed,
+                                       scale_count, values_offset)
 from repro_torch.runtime.transfer import pack_frames, unpack_frames
 
 # Part labels for framed int8 payloads -- the chaos harness keys on these
@@ -69,6 +75,18 @@ def tensor_from_bytes(data: bytes, dtype: torch.dtype, shape,
     return host.reshape(tuple(shape)).to(device)
 
 
+def _to_host(buf: torch.Tensor) -> torch.Tensor:
+    """``buf`` in host memory: a device buffer in one asynchronous copy into
+    pinned memory (PyTorch's caching host allocator), then one wait on the
+    stream."""
+    if buf.device.type == "cpu":
+        return buf
+    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    torch.cuda.current_stream(buf.device).synchronize()
+    return host
+
+
 def encode_boundary(arr: torch.Tensor, wire: str
                     ) -> tuple[bytes, BoundaryMeta]:
     """Encode ``arr`` for the wire; returns ``(payload, meta)``.
@@ -81,8 +99,10 @@ def encode_boundary(arr: torch.Tensor, wire: str
     raw_bytes = int(arr.numel()) * arr.element_size()
     if wire == "int8":
         axis = default_channel_axis(arr.ndim)
-        q, scales = quantize_boundary(arr, axis)
-        payload = pack_frames(host_bytes(scales), host_bytes(q))
+        groups = scale_count(shape, axis)
+        host = memoryview(_to_host(quantize_packed(arr, axis)).numpy())
+        payload = pack_frames(host[:4 * groups],
+                              host[values_offset(groups):])
         return payload, BoundaryMeta(
             wire=wire, storage=arr.dtype, shape=shape, device=arr.device,
             axis=axis, framed=INT8_FRAME_LABELS, raw_bytes=raw_bytes)
@@ -98,11 +118,21 @@ def decode_boundary(payload: bytes, meta: BoundaryMeta) -> torch.Tensor:
     on ``meta.device``.  Decoding an uncorrupted payload reproduces
     ``boundary_roundtrip(arr, meta.wire)`` bit-for-bit."""
     if meta.wire == "int8":
-        s_b, q_b = unpack_frames(payload, meta.framed or INT8_FRAME_LABELS)
-        q = tensor_from_bytes(q_b, torch.int8, meta.shape, meta.device)
-        scales = tensor_from_bytes(s_b, torch.float32, (-1,), meta.device)
-        return dequantize_boundary(q, scales, meta.axis,
-                                   out_dtype=meta.storage)
+        s_b, q_b = unpack_frames(memoryview(payload),
+                                 meta.framed or INT8_FRAME_LABELS)
+        groups = scale_count(meta.shape, meta.axis)
+        off, n = values_offset(groups), math.prod(meta.shape)
+        if len(s_b) != 4 * groups or len(q_b) != n:
+            raise ValueError(f"decode_boundary: frames of {len(s_b)} and "
+                             f"{len(q_b)} bytes for {groups} scales and "
+                             f"{n} values")
+        host = torch.empty(off + n, dtype=torch.uint8,
+                           pin_memory=meta.device.type == "cuda")
+        h = host.numpy()
+        h[:4 * groups] = np.frombuffer(s_b, np.uint8)
+        h[off:] = np.frombuffer(q_b, np.uint8)
+        return dequantize_packed(host.to(meta.device, non_blocking=True),
+                                 meta.shape, meta.axis, meta.storage)
     x = tensor_from_bytes(payload, policy_torch_dtype(meta.wire), meta.shape,
                           meta.device)
     return x if x.dtype == meta.storage else x.to(meta.storage)

@@ -4,7 +4,11 @@
   tensors) against ``repro.models.cnn._conv2d(backend="xla")`` over dense,
   grouped, depthwise and pointwise convs, fused activations and pools,
   with remainder rows and columns: fp32 to 1e-4, bf16 to 2e-2 of scale.
-* The int8 codec against ``quantize_jnp`` / ``dequantize_jnp``, bitwise.
+* The int8 codec against the JAX package's jitted ``quantize_boundary`` /
+  ``dequantize_boundary`` (what its wire ships), bitwise; CPU walks of the
+  codec kernels' plans (``plan_quantize``'s cluster slices and chunks,
+  ``plan_dequantize``'s warp segments) cover every element once and
+  reproduce the plain version bitwise.
 * The CUDA launch geometry (``plan_conv``): on every conv of the main
   path the tiles cover the output exactly, every shared-memory read stays
   inside the staged tile, the stage ring fits in 227 KB, 16-byte copies
@@ -13,6 +17,8 @@
   (im2col by the kernel's own index formulas, k-steps and segments in
   order) and of the depthwise kernel's strips reproduce the conv.
 * The wrappers raise on what the kernels do not take."""
+import math
+
 import numpy as np
 import pytest
 
@@ -20,11 +26,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro.kernels.quant import dequantize_jnp, quantize_jnp  # noqa: E402
+from repro.kernels.quant import dequantize_boundary as jdequantize  # noqa
+from repro.kernels.quant import quantize_boundary as jquantize  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
 from repro_torch.kernels import conv2d as kconv  # noqa: E402
 from repro_torch.kernels import launches  # noqa: E402
 from repro_torch.kernels import quant as kquant  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.ref import (activate, conv2d_plain,  # noqa: E402
                                      dequantize_plain, quantize_plain)
 from repro_torch.models import cnn as tcnn  # noqa: E402
@@ -100,7 +108,7 @@ def test_conv2d_plain_matches_jax_xla(name, dtype):
 
 
 # ---------------------------------------------------------------------------
-# int8 codec: bitwise against the jnp codec
+# int8 codec: bitwise against the jitted JAX codec
 # ---------------------------------------------------------------------------
 def _codec_cases():
     rng = np.random.default_rng(3)
@@ -113,8 +121,12 @@ def _codec_cases():
     ties[0, 1] = rng.normal(size=(2, 6))
     flat = rng.normal(size=(4, 33)).astype(np.float32)
     wide = rng.normal(size=(3, 4, 2, 3, 2)).astype(np.float32)
+    # ROADMAP queue 3 fault 1's seed 2: channel 5's true quotient
+    # absmax / 127 is one ulp off the jitted scale
+    fault = (np.random.default_rng(2).normal(size=(2, 6, 5, 5))
+             * 4).astype(np.float32)
     return {"feature": feat, "zero_channel": zero, "half_ties": ties,
-            "per_tensor_2d": flat, "ndim5": wide,
+            "per_tensor_2d": flat, "ndim5": wide, "fault1_seed2": fault,
             "all_zero": np.zeros((2, 3, 4), np.float32)}
 
 
@@ -133,7 +145,7 @@ def test_codec_bitwise_matches_jnp(name, dtype):
     # both frameworks round fp32 -> bf16 to nearest even: same input bits
     np.testing.assert_array_equal(np.asarray(jx.astype(jnp.float32)),
                                   _f32(tx))
-    jq, js = quantize_jnp(jx, axis)
+    jq, js = jquantize(jx, axis, backend="xla")
     tq, ts = kquant.quantize_boundary(tx)
     assert tq.dtype == torch.int8 and ts.dtype == torch.float32
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
@@ -143,7 +155,7 @@ def test_codec_bitwise_matches_jnp(name, dtype):
     for out in ("fp32", "bf16"):
         jo = jnp.bfloat16 if out == "bf16" else jnp.float32
         to = torch.bfloat16 if out == "bf16" else torch.float32
-        jd = dequantize_jnp(jq, js, axis, out_dtype=jo)
+        jd = jdequantize(jq, js, axis, out_dtype=jo, backend="xla")
         td = kquant.dequantize_boundary(tq, ts, out_dtype=to)
         assert td.dtype == to
         np.testing.assert_array_equal(_f32(td),
@@ -153,7 +165,8 @@ def test_codec_bitwise_matches_jnp(name, dtype):
     rt = kquant.boundary_roundtrip(tx, "int8")
     assert rt.dtype == tdt
     np.testing.assert_array_equal(
-        _f32(rt), np.asarray(dequantize_jnp(jq, js, axis, out_dtype=jdt)
+        _f32(rt), np.asarray(jdequantize(jq, js, axis, out_dtype=jdt,
+                                         backend="xla")
                              .astype(jnp.float32)))
 
 
@@ -170,6 +183,215 @@ def test_codec_zero_channel_scale_is_one():
     assert float(s[2]) == 1.0 and not q[:, 2].any()
     back = kquant.dequantize_boundary(q, s)
     assert not back[:, 2].any()
+
+
+# ---------------------------------------------------------------------------
+# Codec launch geometry, checked on the CPU
+# ---------------------------------------------------------------------------
+# (B, C, S) views: one group (C = 1, a flatten; 1000 leaves a short last
+# chunk), ragged rows (S 49, 36, 25, 7), batch 1 and 4, 16-aligned rows
+WALK_SHAPES = [(1, 1, 16384), (1, 1, 1000), (4, 1, 49), (1, 160, 49),
+               (4, 160, 49), (1, 256, 36), (4, 256, 36), (1, 32, 784),
+               (4, 32, 784), (4, 64, 144), (2, 6, 25), (1, 3, 7)]
+_DT = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _codec_input(bcs, dtype, seed=0):
+    x = np.random.default_rng(seed).normal(size=bcs).astype(np.float32) * 3
+    if bcs[1] > 1:
+        x[:, 0] = 0.0                          # an all-zero group
+    return torch.from_numpy(x).to(_DT[dtype])
+
+
+def _plan_at(bcs, dtype, k):
+    """The quantize plan of a (B, C, S) view at cluster size k."""
+    base = kquant.plan_quantize(*bcs, dtype)
+    return kquant._quant_plan(base.B, base.C, base.S, dtype, base.vec, k)
+
+
+def _group_index(plan, c):
+    """Where each element j of group c lies in x, as the kernel finds it."""
+    return torch.from_numpy(np.asarray(plan.index(c, np.arange(plan.n))))
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("bcs", WALK_SHAPES, ids=str)
+def test_quantize_plan_covers_every_element_once(bcs, k):
+    """Every element is in exactly one chunk of one thread of one CTA of
+    its group's cluster; every chunk is whole, starts vec-aligned and stays
+    in one row; the plan fits the kernel and each thread holds at most
+    ``held`` elements."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = _plan_at(bcs, dtype, k)
+        assert plan.k == k and plan.grid == plan.C * k
+        assert plan.slice % plan.vec == 0 and plan.slice * k >= plan.n
+        assert plan.threads % 32 == 0 and plan.threads <= 512
+        assert plan.resident
+        seen = np.zeros(math.prod(bcs), np.int64)
+        for c in range(plan.C):
+            for r in range(k):
+                lo, hi = plan.bounds(r)
+                for t in range(plan.threads):
+                    chunks = plan.chunks(r, t)
+                    assert len(chunks) * plan.vec <= plan.held
+                    for j, length in chunks:
+                        assert lo <= j and j + length <= hi
+                        assert (j - lo) % plan.vec == 0
+                        assert length == plan.vec
+                        at = plan.index(c, j)
+                        assert plan.index(c, j + length - 1) == \
+                            at + length - 1
+                        assert at % plan.vec == 0
+                        seen[at:at + length] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("bcs", WALK_SHAPES, ids=str)
+def test_quantize_cluster_walk_reproduces_plain(bcs, k, dtype):
+    """A torch emulation of the kernel: each CTA's partial absmax over its
+    slice, the cluster's maximum of the k partials, the scale as one fp32
+    multiply by fl32(1/127), each slice quantized with it -- bitwise
+    ``quantize_plain``, for every cluster size."""
+    x = _codec_input(bcs, dtype, seed=k)
+    plan = _plan_at(bcs, x.dtype, k)
+    flat = x.reshape(-1).float()
+    q = torch.empty(flat.numel(), dtype=torch.int8)
+    scales = torch.empty(plan.C)
+    inv = torch.tensor(ref.INV127, dtype=torch.float32)
+    for c in range(plan.C):
+        idx = _group_index(plan, c)
+        parts = [flat[idx[lo:hi]].abs().amax() if hi > lo
+                 else torch.tensor(0.0)
+                 for lo, hi in map(plan.bounds, range(k))]
+        m = torch.stack(parts).amax()
+        scale = m * inv if m > 0 else torch.tensor(1.0)
+        scales[c] = scale
+        for lo, hi in map(plan.bounds, range(k)):
+            v = torch.round(flat[idx[lo:hi]] / scale).clamp(-127, 127)
+            q[idx[lo:hi]] = v.to(torch.int8)
+    pq, ps = quantize_plain(x, 1)
+    assert torch.equal(q.reshape(bcs), pq) and torch.equal(scales, ps)
+
+
+DEQUANT_SHAPES = WALK_SHAPES + [(4, 1280, 1), (2, 5, 3), (4, 128, 3136)]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("bcs", DEQUANT_SHAPES, ids=str)
+def test_dequantize_plan_walk_reproduces_plain(bcs, dtype):
+    """Every value is taken by exactly one chunk of one thread; the place
+    in its row and the channel that the kernel steps to for each chunk are
+    the chunk's own, and where a row ends inside a chunk the rest takes
+    the next row's scale; writing q * scale so gives ``dequantize_plain``
+    bitwise."""
+    _dequantize_walk(bcs, dtype)
+
+
+@pytest.mark.parametrize("bcs", DEQUANT_SHAPES[:-1], ids=str)
+def test_dequantize_walk_steps_many_chunks_a_thread(bcs, monkeypatch):
+    """The same with one block of threads, so each thread steps (s, c)
+    through many chunks, across rows and channels."""
+    kquant.plan_dequantize.cache_clear()     # plans of the real target
+    monkeypatch.setattr(kquant, "DQ_TARGET_THREADS", kquant.DQ_THREADS)
+    try:
+        assert kquant.plan_dequantize(*bcs).blocks == 1
+        _dequantize_walk(bcs, "fp32")
+    finally:
+        kquant.plan_dequantize.cache_clear()
+
+
+def _dequantize_walk(bcs, dtype):
+    x = _codec_input(bcs, "fp32")
+    q, scales = quantize_plain(x, 1)
+    plan = kquant.plan_dequantize(*bcs, _DT[dtype])
+    assert plan.n % plan.vec == 0 and (plan.vec == 1 or plan.S >= 4)
+    assert plan.blocks * kquant.DQ_THREADS <= max(
+        kquant.DQ_TARGET_THREADS, kquant.DQ_THREADS)
+    starts, chans = [], []
+    for t in range(plan.blocks * kquant.DQ_THREADS):
+        for p, s, c in plan.walk(t):
+            row = p // plan.S
+            assert (s, c) == (p - row * plan.S, row % plan.C)
+            for e in range(plan.vec):
+                starts.append(p + e)
+                chans.append(c if s + e < plan.S else (c + 1) % plan.C)
+    at = torch.tensor(starts)
+    assert bool((torch.bincount(at, minlength=q.numel()) == 1).all())
+    out = torch.empty(q.numel(), dtype=_DT[dtype])
+    out[at] = (q.reshape(-1)[at].float()
+               * scales[torch.tensor(chans)]).to(_DT[dtype])
+    assert torch.equal(out.reshape(bcs),
+                       dequantize_plain(q, scales, 1, _DT[dtype]))
+
+
+def test_codec_plans_at_the_served_boundaries():
+    """Quantize holds every served boundary in registers (x read once from
+    HBM), with one CTA a group where the groups cover half the SMs, a
+    cluster of more than one CTA for a flatten (C = 1) and (4, 32, 28,
+    28), and each cluster size somewhere; a group too large to hold at k =
+    8 is read twice; dequantize takes 4 values a thread at a time."""
+    want = {(4, 128, 3136): 1, (4, 256, 784): 1, (4, 512, 49): 1,
+            (4, 32, 784): 2, (4, 160, 49): 1, (4, 256, 36): 1,
+            (1, 32, 784): 1, (1, 160, 49): 1, (1, 256, 36): 1,
+            (1, 1, 16384): 8, (1, 1, 36864): 8, (4, 32, 3136): 4}
+    for dtype in (torch.float32, torch.bfloat16):
+        for bcs, k in want.items():
+            plan = kquant.plan_quantize(*bcs, dtype)
+            assert plan.k == k and plan.resident, (bcs, dtype, plan)
+            assert plan.vec == (16 if bcs[2] % 16 == 0 else
+                                4 if bcs[2] % 4 == 0 else 1)
+            d = kquant.plan_dequantize(*bcs, dtype)
+            assert d.vec == (4 if bcs[2] >= 4 else 1)
+        big = kquant.plan_quantize(1, 1, 2**21, dtype)
+        assert big.k == 8 and not big.resident
+
+
+def test_codec_plans_narrow_their_copies_to_the_alignment():
+    """A view whose address is not 16-byte aligned gets narrower copies,
+    never a misaligned one."""
+    assert kquant.plan_quantize(1, 8, 64, torch.float32, align=8).vec == 1
+    assert kquant.plan_quantize(1, 8, 64, torch.bfloat16, align=8).vec == 4
+    assert kquant.plan_quantize(1, 8, 64, torch.float32, align=16).vec == 16
+    assert kquant.plan_dequantize(1, 8, 64, align=4).vec == 4
+    assert kquant.plan_dequantize(1, 8, 64, align=2).vec == 1
+    assert kquant.plan_dequantize(4, 1280, 1).vec == 1
+    with pytest.raises(ValueError):
+        kquant.plan_quantize(2**16, 2**8, 2**8)
+
+
+@pytest.mark.parametrize("function", ["quantize_launch",
+                                      "dequantize_launch"])
+def test_codec_ctypes_signatures_match_the_cuda_entry_points(function):
+    """The wrapper declares as many arguments as the C entry point takes
+    (the source is read here; nothing is compiled)."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "quant.cu").read_text()
+    decl = re.search(rf"\bint {function}\(([^)]*)\)", src)
+    argtypes, _ = kquant._SIGNATURES[function]
+    assert decl is not None and len(argtypes) == len(decl.group(1).split(","))
+
+
+def test_codec_constants_are_the_kernels():
+    """The planner's block sizes and window, and the scale's constant, are
+    those of ``csrc/quant.cu``; the constant is fl32(1/127) and 127 times
+    it rounds to 1.0 (a group of absmax 127 keeps scale 1)."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "quant.cu").read_text()
+    for name in ("Q_MAX_THREADS", "DQ_THREADS"):
+        got = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert int(got.group(1)) == getattr(kquant, name), name
+    held = re.search(r"held_chunks\(int v\) \{\s*return v == 16 \? (\d+) "
+                     r": v == 4 \? (\d+) : (\d+);", src)
+    assert tuple(map(int, held.groups())) == tuple(
+        kquant.HELD_CHUNKS[v] for v in (16, 4, 1))
+    lit = re.search(r"constexpr float INV127 = (0x[0-9a-f.p+-]+)f;", src)
+    assert float.fromhex(lit.group(1)) == ref.INV127 \
+        == float(np.float32(1 / 127))
+    assert np.float32(127) * np.float32(ref.INV127) == np.float32(1)
 
 
 # ---------------------------------------------------------------------------
