@@ -65,7 +65,31 @@ Phases, in order; any failed check raises and the script exits non-zero:
    a multiple of the plan's steps: fp32 to 1e-4 of scale (flash, WKV)
    and 2e-4 (SSD), bf16 to 2e-2 (flash, WKV) and 5e-2 (SSD), where the
    scale is each output row's own (its largest |value| over the last
-   dim, at least the RMS of the whole output).
+   dim, at least the RMS of the whole output);
+9. the CNN stream path: ``repro_torch.launch.serve.serve_cnn_stream`` for
+   AlexNet and MobileNetV2 at 224 px, 16 single-sample requests in batch
+   buckets of 4 -- K=3 with the int8 wire pipelined, K=2 with the follow
+   wire sequential (``--no-pipeline``), K=3 int8 under 30% drops, K=3
+   int8 under the ``crash`` tier-fault profile -- with the launch counts
+   set to 0 just before and read just after.  Each pipelined run's served
+   requests must equal their samples alone through the chain at batch 1
+   on the card, bitwise; each run's conv kernels (and, on the int8 wire,
+   both codec kernels) must have launched; each run's ``stats()`` must
+   equal the same stream's on the CPU, key for key (counts, virtual times,
+   hop bytes), and its logits the CPU's (1e-3 of scale, follow wire; the
+   same top-1, int8 wire).  Prints wall ms per request and the virtual
+   req/s, p50 and p99;
+10. the transformer decode path: Qwen3-4B at full width and depth (fp32,
+   weights from a seeded generator on the card) serves 8 greedy requests
+   through ``repro_torch.serving.engine.Engine`` (tokens/s printed), and
+   prefill of n+1 tokens equals prefill of n plus one ``decode_step`` to
+   1e-3 of a row's scale; RWKV6-7B, Zamba2-7B (one shared-block
+   application), Granite-MoE-3B and HuBERT-XLarge at full width and cut
+   depth hold their card prefill logits and one decode step (HuBERT:
+   forward only) to the same weights on the CPU to 1e-3 of a row's scale,
+   and the MoE prefill is bitwise the same twice; no kernel of the port
+   launches on this path (its mixers are plain torch, as the JAX
+   package's are plain jnp).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without ``src/repro_torch`` beside it, the script exits
@@ -959,6 +983,300 @@ def phase_time_mixers(torch, F, kops, ref, cases, inputs):
     return agg, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the CNN stream path
+# ---------------------------------------------------------------------------
+STREAM_ARGS = ["--concurrency", "16", "--max-batch", "4"]
+STREAM_RUNS = [  # (label, argv after --cnn <model> STREAM_ARGS)
+    ("K3-int8", ["--tiers", "3", "--wire-dtype", "int8"]),
+    ("K2-follow-seq", ["--tiers", "2", "--wire-dtype", "follow",
+                       "--no-pipeline"]),
+    ("K3-int8-drop30", ["--tiers", "3", "--wire-dtype", "int8",
+                        "--drop", "0.3"]),
+    ("K3-int8-crash", ["--tiers", "3", "--wire-dtype", "int8",
+                       "--tier-faults", "crash"]),
+]
+
+
+def stream_kernels(model: str, argv: list) -> list[str]:
+    """The kernels a stream run must launch."""
+    names = ["conv2d_dense"]
+    if model == "mobilenetv2":
+        names.append("conv2d_depthwise")
+    if "int8" in argv:
+        names += ["quantize", "dequantize"]
+    return names
+
+
+def request_reference(torch, cnn, quant, layers, params, req, rt):
+    """The logits of a request's sample alone, at batch 1, through the
+    chain under the cuts its batch planned and under the cuts it finished
+    under (a stage merge or a failover inside a batch moves the later
+    requests to the latter), each boundary round-tripped through the
+    wire (one format on every hop).  One of them must equal the served
+    logits bitwise."""
+    res = req.result
+    wire = set(rt.wire_dtypes)
+    check(len(wire) == 1, f"phase 9: hops ship {wire}, not one format")
+    return [chain_reference(torch, cnn, quant, layers, params, req.x[None],
+                            cuts, [*wire] * len(cuts), [(0, 1)])[0]
+            for cuts in dict.fromkeys((tuple(res.planned_cuts),
+                                       tuple(res.cuts)))]
+
+
+def phase_stream(torch, cnn, serve, launches, quant, dev):
+    """``serve_cnn_stream`` for AlexNet and MobileNetV2 at 224 px, 16
+    single-sample requests at batch buckets of 4, each of STREAM_RUNS
+    after an untimed warm-up of all of them (the timed runs' shapes), with
+    the launch counts set to 0 just before and read just after.
+    Checks (a) every served request of a pipelined run bitwise equal to
+    its sample alone through the chain at batch 1 on the card, (b) each
+    run's kernels launched, (c) each run's ``stats()`` equal to the same
+    stream's on the CPU (counts, virtual times, hop bytes), and every
+    request's logits within 1e-3 of the CPU's (follow wire) or of the same
+    top-1 (int8 wire)."""
+    models = ("alexnet", "mobilenetv2")
+    params = {m: cnn.init_cnn(cnn.CNN_MODELS[m], device=dev) for m in models}
+    cpu_params = {m: cnn.init_cnn(cnn.CNN_MODELS[m], device="cpu")
+                  for m in models}
+    for model in models:        # warm-up: every timed run's shapes once
+        for _, argv in STREAM_RUNS:
+            args = serve.parse_args(["--cnn", model, *STREAM_ARGS, *argv,
+                                     "--device", dev.type])
+            serve.serve_cnn_stream(args, params=params[model], quiet=True)
+    torch.cuda.synchronize()
+    outs = []
+    launches.reset()
+    for model in models:
+        for label, argv in STREAM_RUNS:
+            args = serve.parse_args(["--cnn", model, *STREAM_ARGS, *argv,
+                                     "--device", dev.type])
+            outs.append((model, label, argv,
+                         serve.serve_cnn_stream(args, params=params[model])))
+    counts = {n: launches.snapshot()[n] for n in CNN_KERNELS}
+    print(f"phase 9: stream path launches {json.dumps(counts)}")
+    rows = []
+    for model, label, argv, out in outs:
+        eng, reqs = out["engine"], out["requests"]
+        what = f"phase 9 {model} {label}"
+        for name in stream_kernels(model, argv):
+            check(out["launches"][name] > 0,
+                  f"{what}: {name} was never launched")
+        s = eng.stats()
+        check(s["served"] > 0, f"{what}: nothing served")
+        layers = cnn.CNN_MODELS[model]
+        bitwise = 0
+        if eng.pipelined:
+            for req in reqs:
+                if req.status != "served":
+                    continue
+                rt = eng._buckets[req.bucket].rt
+                refs = request_reference(torch, cnn, quant, layers,
+                                         params[model], req, rt)
+                check(any(torch.equal(req.logits, r) for r in refs),
+                      f"{what}: request {req.rid} differs from its sample "
+                      f"alone through the chain at batch 1")
+                bitwise += 1
+        args = serve.parse_args(["--cnn", model, *STREAM_ARGS, *argv,
+                                 "--device", "cpu"])
+        cpu = serve.serve_cnn_stream(args, params=cpu_params[model],
+                                     quiet=True)
+        cs = cpu["engine"].stats()
+        diff = sorted(k for k in set(s) | set(cs) if s.get(k) != cs.get(k))
+        check(not diff, f"{what}: stats() differ from the CPU's at {diff}")
+        worst, top1 = 0.0, True
+        for a, b in zip(reqs, cpu["requests"]):
+            check(a.status == b.status, f"{what}: request {a.rid} "
+                  f"{a.status} on the card, {b.status} on the CPU")
+            if a.logits is None:
+                continue
+            check(bool(torch.isfinite(a.logits).all()),
+                  f"{what}: non-finite logits")
+            err, scale = rel_err(a.logits.cpu(), b.logits)
+            worst = max(worst, err / scale)
+            top1 = top1 and int(a.logits.argmax()) == int(b.logits.argmax())
+        if "int8" in argv:
+            check(top1, f"{what}: a top-1 differs from the CPU run")
+        else:
+            check(worst <= LOGIT_TOL, f"{what}: logits differ from the "
+                  f"CPU run by {worst} of scale > {LOGIT_TOL}")
+        row = dict(model=model, run=label, served=s["served"],
+                   submitted=s["submitted"], failed=s["failed"],
+                   batches=s["batches"], pipelined=s["pipelined"],
+                   wall_s=out["seconds"],
+                   wall_ms_per_request=1e3 * out["seconds"] / s["served"],
+                   virtual_requests_per_s=s["requests_per_s"],
+                   virtual_p50_s=s["latency_p50_s"],
+                   virtual_p99_s=s["latency_p99_s"],
+                   repicks=s["repicks"], merges=s["merges"],
+                   failovers=s["failovers"],
+                   dropped=[h["link"]["dropped"] for h in s["hops"]],
+                   bitwise_requests=bitwise, cpu_rel_err=worst,
+                   top1_equal=top1, stats_equal_cpu=True,
+                   launches=out["launches"])
+        rows.append(row)
+        print(f"  {model} {label}: {s['served']}/{s['submitted']} served in "
+              f"{s['batches']} batches, {row['wall_ms_per_request']:.2f} "
+              f"wall ms/request (host clock); virtual "
+              f"{s['requests_per_s']:.1f} req/s, p50 "
+              f"{s['latency_p50_s'] * 1e3:.1f} ms, p99 "
+              f"{s['latency_p99_s'] * 1e3:.1f} ms (virtual clock); "
+              f"merges={s['merges']} failovers={s['failovers']}; "
+              f"{bitwise} requests bitwise, stats == CPU, "
+              f"vs CPU {worst:.3g} of scale")
+    return counts, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the transformer decode path
+# ---------------------------------------------------------------------------
+DECODE_TOL = 1e-3
+BLOCK_KINDS = [  # (config, layers kept, forward only)
+    ("rwkv6-7b", 2, False),
+    ("zamba2-7b", 6, False),        # one application of the shared block
+    ("granite-moe-3b-a800m", 2, False),
+    ("hubert-xlarge", 2, True),
+]
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def phase_decode(torch, configs, T, Engine, launches, dev):
+    """(a) Qwen3-4B at full width and depth, fp32 weights from a seeded
+    generator on the card, serving 8 greedy requests of 8-24 prompt
+    tokens, 8 new tokens each, through ``serving.engine.Engine`` (timed
+    on a second engine, after a first has served the same prompts, and
+    emitting the same tokens); prefill of n+1 tokens against prefill of n plus
+    one ``decode_step`` on the last token's logits.  (b) one config of
+    each other block kind at full width and a cut depth, its prefill
+    logits and one decode step held against the same weights on the CPU,
+    and the MoE prefill run twice on the card, bitwise.  No kernel of the
+    port runs on this path: every launch count stays 0."""
+    import dataclasses
+
+    import numpy as np
+
+    launches.reset()
+    rng = np.random.default_rng(0)
+    cfg = configs.all_configs()["qwen3-4b"]
+    params = T.init_params(cfg, 0, torch.float32, dev)
+    n_params = tree_numel(params)
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            int(rng.choice([8, 16, 24]))).tolist()
+               for _ in range(8)]
+
+    def serve_prompts():
+        eng = Engine(cfg, params, max_len=128, max_batch=4, device=dev)
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        return eng, reqs, time.perf_counter() - t0
+
+    _, warm, _ = serve_prompts()        # warm-up on the timed shapes
+    eng, reqs, dt = serve_prompts()
+    check([r.output for r in reqs] == [r.output for r in warm],
+          "phase 10 qwen3-4b: two runs of the same prompts emit different "
+          "tokens")
+    toks = sum(len(r.output) for r in reqs)
+    check(toks == 64 and all(0 <= t < cfg.padded_vocab
+                             for r in reqs for t in r.output),
+          f"phase 10 qwen3-4b: {toks} tokens served, or a token out of range")
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 17)),
+                          device=dev)
+    full, _, _ = T.forward(cfg, params, {"tokens": tok}, mode="prefill",
+                           cache=T.init_cache(cfg, 2, 128, torch.float32, dev))
+    _, cache, _ = T.forward(cfg, params, {"tokens": tok[:, :16]},
+                            mode="prefill",
+                            cache=T.init_cache(cfg, 2, 128, torch.float32, dev))
+    step, _ = T.decode_step(cfg, params, tok[:, 16:], cache)
+    _, rel = row_err(step[:, -1], full[:, -1])
+    check(rel <= DECODE_TOL, f"phase 10 qwen3-4b: prefill + decode_step "
+          f"differs from the longer prefill by {rel} of a row's scale")
+    # a batch (one length bucket of up to 4 prompts) is one prefill and 7
+    # decode steps: tokens/s depends on how the prompts' lengths bucket,
+    # ms a pass does not
+    batches = int(eng.stats["batches"])
+    passes = batches * 8
+    qwen = dict(config="qwen3-4b", params=n_params, requests=len(reqs),
+                batches=batches, passes=passes, tokens=toks, seconds=dt,
+                tokens_per_s=toks / dt, ms_per_pass=1e3 * dt / passes,
+                decode_vs_prefill_rel_err=rel,
+                peak_bytes=torch.cuda.max_memory_allocated(dev))
+    print(f"phase 10: qwen3-4b full width and depth ({n_params / 1e9:.2f} B "
+          f"parameters, fp32): {len(reqs)} requests, {toks} tokens in "
+          f"{batches} batches, {dt:.2f} s, {toks / dt:.1f} tokens/s, "
+          f"{1e3 * dt / passes:.1f} ms a pass (host clock, {card_line()}); "
+          f"decode == prefill to {rel:.3g} of scale")
+    del params, eng, full, cache, step
+    torch.cuda.empty_cache()
+
+    rows = [qwen]
+    for name, n_layers, fwd_only in BLOCK_KINDS:
+        cfg = dataclasses.replace(configs.all_configs()[name],
+                                  num_layers=n_layers)
+        params = T.init_params(cfg, 0, torch.float32, dev)
+        cpu_params = tree_to(params, "cpu")
+        B, S = 2, 16
+        if cfg.frontend == "audio":
+            frames = rng.normal(size=(B, S, cfg.d_model)) * 0.02
+            batch = {"prefix_embeds": torch.as_tensor(frames,
+                                                      dtype=torch.float32)}
+        else:
+            batch = {"tokens": torch.as_tensor(
+                rng.integers(0, cfg.vocab_size, (B, S)))}
+        nxt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 1)))
+        outs = {}
+        for where, p in (("card", params), ("cpu", cpu_params)):
+            d = dev if where == "card" else torch.device("cpu")
+            b = {k: v.to(d) for k, v in batch.items()}
+            cache = None if fwd_only \
+                else T.init_cache(cfg, B, 32, torch.float32, d)
+            logits, cache, _ = T.forward(cfg, p, b, mode="prefill",
+                                         cache=cache)
+            outs[where] = [logits.cpu()]
+            if not fwd_only:
+                lg, _ = T.decode_step(cfg, p, nxt.to(d), cache)
+                outs[where].append(lg.cpu())
+            if where == "card" and cfg.num_experts:
+                again, _, _ = T.forward(cfg, p, b, mode="prefill",
+                                        cache=None if fwd_only else
+                                        T.init_cache(cfg, B, 32,
+                                                     torch.float32, d))
+                check(torch.equal(again, logits), f"phase 10 {name}: two "
+                      f"card prefills differ (the MoE combine order)")
+        errs = []
+        for got, want in zip(outs["card"], outs["cpu"]):
+            check(bool(torch.isfinite(got).all()),
+                  f"phase 10 {name}: non-finite logits")
+            errs.append(row_err(got, want)[1])
+        check(max(errs) <= DECODE_TOL, f"phase 10 {name}: the card differs "
+              f"from the CPU by {errs} of a row's scale")
+        rows.append(dict(config=name, layers=n_layers,
+                         params=tree_numel(params), prefill_rel_err=errs[0],
+                         decode_rel_err=errs[1] if len(errs) > 1 else None))
+        print(f"  {name} ({n_layers} layers, full width): card == CPU to "
+              f"{', '.join(f'{e:.3g}' for e in errs)} of scale "
+              f"({'prefill' if fwd_only else 'prefill, decode step'})")
+        del params, cpu_params
+        torch.cuda.empty_cache()
+    counts = launches.snapshot()
+    check(not any(counts.values()), f"phase 10 launched kernels {counts}: "
+          f"the decode path's mixers are plain torch")
+    return rows
+
+
 def phase_build(_build):
     """Phase 2: build every source at once; check what nvcc made of the
     tensor-core kernels.  Returns the logs and the per-kernel reports."""
@@ -1029,7 +1347,8 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.kernels.rwkv6_wkv import RWKV_HD, plan_wkv
     from repro_torch.launch import serve
-    from repro_torch.models import cnn, profiles
+    from repro_torch.models import cnn, profiles, transformer
+    from repro_torch.serving.engine import Engine
 
     t_start = time.perf_counter()
     strict_fp32()
@@ -1060,6 +1379,14 @@ def main() -> int:
                                                  inputs, outs, small, dev)
     worst.update(mixer_worst)
     print(f"phases 7-8: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    stream_counts, stream_runs = phase_stream(torch, cnn, serve, launches,
+                                              kquant, dev)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    decode_runs = phase_decode(torch, configs, transformer, Engine, launches,
+                               dev)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
     agg, time_rows = phase_time(torch, F, cnn, kconv, kquant, ref,
                                 micro + batch4, dev)
     t0 = time.perf_counter()
@@ -1076,6 +1403,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
+            **({"launches_stream": stream_counts[name]}
+               if name in stream_counts else {}),
             "max_abs_err": worst[(name, "fp32")], "ms": a["ms"],
             "plain_ms": a["plain_ms"],
             "bound_ms": a["bound_ms"],
@@ -1092,6 +1421,7 @@ def main() -> int:
                                for k, v in codec_plans.items()],
                   kernel_report=kernel_report,
                   mixer_checks=mixer_rows, runs=runs, timings=time_rows,
+                  stream_runs=stream_runs, decode_runs=decode_runs,
                   kernels=kernels, ptxas=regs,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")

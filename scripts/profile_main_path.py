@@ -2,22 +2,35 @@
 """Where a served request's time goes, on one card.
 
     python3 scripts/profile_main_path.py [--src DIR] [--label NAME]
+                                         [--paths request,stream,decode]
 
-Serves AlexNet (K=2, follow wire) and MobileNetV2 (K=3, M=4, int8 wire)
-at 224 px, batch 4, through ``repro_torch.launch.serve.serve_cnn``, then
-traces three more requests of each with ``torch.profiler`` (CPU and
-CUDA).  The runtime's stages are wrapped in ``record_function`` spans
-here, in the script: stage compute (``ChainRuntime._run``), boundary
-encode, link send, decode.  Prints, per configuration: host time per
-request, device busy time per request (the kernels' and copies' own
-time), the device's idle share, the host time of each span, and the
-device kernels by total time, and the memory copies between host and
-card per request by kind (``Memcpy DtoH``, ``Memcpy HtoD``, ...).
-``--src`` is the ``src`` directory whose ``repro_torch`` is profiled
-(default: this checkout's), e.g. that of a ``git archive`` of the parent
-commit unpacked into a git-ignored directory, to compare two trees in one
-call.  Writes the same to ``chiprun_out/profile_main_path_<label>.json``
-and a Chrome trace per configuration.  Needs an NVIDIA card."""
+Each path is traced with ``torch.profiler`` (CPU and CUDA) after an
+untraced warm-up on the same shapes:
+
+- ``request`` (default): ``repro_torch.launch.serve.serve_cnn`` for AlexNet
+  (K=2, follow wire) and MobileNetV2 (K=3, M=4, int8 wire) at 224 px,
+  batch 4; three more requests of each are traced.
+- ``stream``: ``serve_cnn_stream`` for the same two models, K=3 with the
+  int8 wire, 16 single-sample requests in batch buckets of 4, pipelined;
+  a second stream is traced around ``run_until_idle``.
+- ``decode``: Qwen3-4B at full width and depth (fp32, seeded weights on
+  the card) in ``repro_torch.serving.engine.Engine``; one batch of 4
+  requests of 16 prompt tokens and 8 new tokens is traced after a warm-up
+  batch of the same shapes, with ``prefill`` and ``decode_step`` spans.
+
+The runtime's stages are wrapped in ``record_function`` spans here, in the
+script: stage compute (``ChainRuntime._run``), boundary encode, link send,
+decode.  Prints, per configuration and unit of work (a request, or a
+decode pass): host time, device busy time (the kernels' and copies' own
+time), the device's idle share, kernel launches, the memory copies between
+host and card by kind (``Memcpy DtoH``, ``Memcpy HtoD``, ...), the host
+time of each span, and the device kernels by total time.  ``--src`` is the
+``src`` directory whose ``repro_torch`` is profiled (default: this
+checkout's), e.g. that of a ``git archive`` of the parent commit unpacked
+into a git-ignored directory, to compare two trees in one call.  Writes the
+same to ``chiprun_out/profile_main_path_<label>.json`` and a Chrome trace
+per CNN configuration (none of the decode batch: ~60 MB).  Needs an NVIDIA
+card."""
 from __future__ import annotations
 
 import argparse
@@ -34,34 +47,176 @@ CONFIGS = [
     ("mobilenetv2", ["--tiers", "3", "--microbatch", "4", "--wire-dtype",
                      "int8"]),
 ]
+STREAM = ["--tiers", "3", "--wire-dtype", "int8", "--concurrency", "16",
+          "--max-batch", "4"]
 SPANS = ("stage_compute", "encode_boundary", "send_with_retry",
          "decode_boundary")
+DECODE_SPANS = ("prefill", "decode_step")
 
 
-def _wrap(torch, module, name, label):
-    fn = getattr(module, name)
+def _wrap(torch, owner, name, label):
+    fn = getattr(owner, name)
 
     def wrapped(*args, **kwargs):
         with torch.profiler.record_function(label):
             return fn(*args, **kwargs)
 
-    setattr(module, name, wrapped)
+    setattr(owner, name, wrapped)
+
+
+def _summary(prof, spans, n, wall):
+    """Device events per unit of work (n units over ``wall`` seconds).
+    Device time counts the device's own events (kernels, copies): CPU ops
+    also report their kernels' time, and the spans appear again as
+    device-side annotations covering their kernels."""
+    from torch.autograd import DeviceType
+    device = sorted(
+        ((e.key, e.self_device_time_total / n, e.count / n)
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA
+         and e.self_device_time_total > 0 and e.key not in spans),
+        key=lambda r: -r[1])
+    busy = sum(us for _, us, _ in device) / 1e6
+    span_ms = dict.fromkeys(spans, 0.0)
+    for e in prof.events():
+        if e.name in spans and e.device_type == DeviceType.CPU:
+            span_ms[e.name] += e.cpu_time_total / n / 1e3
+    memcpy = {}
+    for k, _, c in device:
+        if k.startswith("Memcpy"):
+            memcpy[k] = memcpy.get(k, 0) + c
+    return dict(host_ms=1e3 * wall / n, device_busy_ms=1e3 * busy,
+                device_idle_share=1.0 - busy / (wall / n),
+                launches=sum(c for k, _, c in device
+                             if not k.startswith("Memcpy")),
+                memcpy=memcpy, span_host_ms=span_ms,
+                device_us=[dict(name=k, us=us, calls=c)
+                           for k, us, c in device])
+
+
+def _print(what, row, top=8):
+    print(f"{what}: {row['host_ms']:.3f} ms on the host clock, device busy "
+          f"{row['device_busy_ms']:.3f} ms (idle share "
+          f"{row['device_idle_share']:.3f}), {row['launches']:.1f} kernel "
+          f"launches")
+    print("  host ms by span: " + ", ".join(
+        f"{k}={v:.3f}" for k, v in sorted(row["span_host_ms"].items())))
+    print(f"  memory copies: {json.dumps(row['memcpy'])}")
+    for d in row["device_us"][:top]:
+        print(f"  device {d['us']:9.1f} us  x{d['calls']:<6.1f} "
+              f"{d['name'][:80]}")
+
+
+def profile_request(torch, profile, acts, serve, out_dir, label):
+    rows, n_req = [], 3
+    for model, argv in CONFIGS:
+        sargs = serve.parse_args(["--cnn", model, "--batch", "4",
+                                  "--requests", "2", *argv])
+        warm = serve.serve_cnn(sargs, quiet=True)     # builds, warms up
+        rt, x = warm["runtime"], warm["x"]
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_req):
+                rt.infer(x)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        row = dict(model=model, argv=argv, **_summary(prof, SPANS, n_req,
+                                                      wall))
+        rows.append(row)
+        prof.export_chrome_trace(os.path.join(
+            out_dir, f"trace_{label}_{model}.json"))
+        _print(f"{model} {' '.join(argv)}, per request", row)
+    return rows
+
+
+def profile_stream(torch, profile, acts, serve, cnn_engine, out_dir, label):
+    run = cnn_engine.CnnServingEngine.run_until_idle
+    traced = []
+
+    def run_traced(self):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run(self)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        traced.append((prof, wall))
+
+    rows = []
+    for model in ("alexnet", "mobilenetv2"):
+        args = serve.parse_args(["--cnn", model, *STREAM])
+        serve.serve_cnn_stream(args, quiet=True)           # warm-up
+        cnn_engine.CnnServingEngine.run_until_idle = run_traced
+        try:
+            out = serve.serve_cnn_stream(args, quiet=True)
+        finally:
+            cnn_engine.CnnServingEngine.run_until_idle = run
+        prof, wall = traced.pop()
+        n = out["engine"].stats()["served"]
+        row = dict(model=model, argv=STREAM, requests=n,
+                   **_summary(prof, SPANS, n, wall))
+        rows.append(row)
+        prof.export_chrome_trace(os.path.join(
+            out_dir, f"trace_{label}_stream_{model}.json"))
+        _print(f"stream {model} K3 int8, per request", row)
+    return rows
+
+
+def profile_decode(torch, profile, acts, all_configs, T, Engine):
+    cfg = all_configs()["qwen3-4b"]
+    dev = torch.device("cuda")
+    params = T.init_params(cfg, 0, torch.float32, dev)
+    eng = Engine(cfg, params, max_len=128, max_batch=4, device=dev)
+    _wrap(torch, eng, "_prefill", "prefill")
+    _wrap(torch, eng, "_decode", "decode_step")
+    gen = torch.Generator().manual_seed(0)
+
+    def batch():
+        for _ in range(4):
+            eng.submit(torch.randint(0, cfg.vocab_size, (16,),
+                                     generator=gen).tolist(),
+                       max_new_tokens=8)
+
+    batch()
+    eng.run_until_idle()                                   # warm-up
+    batch()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    passes = 8                          # one prefill + 7 decode steps
+    row = dict(config="qwen3-4b", batch=4, prompt=16, new_tokens=8,
+               tokens_per_s=4 * 8 / wall, passes=passes,
+               **_summary(prof, DECODE_SPANS, passes, wall))
+    _print("decode qwen3-4b batch 4, per pass (prefill or decode step)", row,
+           top=6)
+    print(f"  {row['tokens_per_s']:.1f} tokens/s over the traced batch")
+    return row
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="change")
+    ap.add_argument("--paths", default="request",
+                    help="comma-separated: request, stream, decode")
     args = ap.parse_args()
+    paths = args.paths.split(",")
+    bad = set(paths) - {"request", "stream", "decode"}
+    if bad:
+        ap.error(f"unknown paths {sorted(bad)}")
     import torch
 
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.src))
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.device import strict_fp32
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
     from repro_torch.runtime import runtime as rt_mod
@@ -71,64 +226,29 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, args.label, os.path.abspath(args.src))
+    strict_fp32()
     _build.build_all()
     _wrap(torch, rt_mod.ChainRuntime, "_run", "stage_compute")
     for name in SPANS[1:]:
         _wrap(torch, rt_mod, name, name)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     report = {"card": card, "label": args.label,
-              "src": os.path.abspath(args.src), "configs": []}
-    n_req = 3
-    for model, argv in CONFIGS:
-        sargs = serve.parse_args(["--cnn", model, "--batch", "4",
-                                  "--requests", "2", *argv])
-        warm = serve.serve_cnn(sargs, quiet=True)     # builds, warms up
-        rt, x = warm["runtime"], warm["x"]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_req):
-                rt.infer(x)
-                torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / n_req
-        # device time of the device's own events (kernels, copies): CPU ops
-        # also report their kernels' time, and the spans appear again as
-        # device-side annotations covering their kernels
-        device = sorted(
-            ((e.key, e.self_device_time_total / n_req, e.count // n_req)
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and e.self_device_time_total > 0 and e.key not in SPANS),
-            key=lambda r: -r[1])
-        busy = sum(us for _, us, _ in device) / 1e6
-        spans = dict.fromkeys(SPANS, 0.0)
-        for e in prof.events():
-            if e.name in SPANS and e.device_type == DeviceType.CPU:
-                spans[e.name] += e.cpu_time_total / n_req / 1e3
-        memcpy = {}
-        for name, _, calls in device:
-            if name.startswith("Memcpy"):
-                memcpy[name] = memcpy.get(name, 0) + calls
-        row = dict(model=model, argv=argv, host_ms_per_request=1e3 * wall,
-                   device_busy_ms_per_request=1e3 * busy,
-                   device_idle_share=1.0 - busy / wall,
-                   span_host_ms_per_request=spans,
-                   memcpy_per_request=memcpy,
-                   device_us_per_request=[
-                       dict(name=k, us=us, calls=c) for k, us, c in device])
-        report["configs"].append(row)
-        prof.export_chrome_trace(os.path.join(
-            out_dir, f"trace_{args.label}_{model}.json"))
-        print(f"{model} {' '.join(argv)}: {1e3 * wall:.2f} ms/request on "
-              f"the host clock, device busy {1e3 * busy:.3f} ms "
-              f"(idle share {1.0 - busy / wall:.3f})")
-        print("  host ms per request by span: " + ", ".join(
-            f"{k}={v:.3f}" for k, v in sorted(spans.items())))
-        print(f"  memory copies per request: {json.dumps(memcpy)}")
-        for k, us, c in device[:8]:
-            print(f"  device {us:9.1f} us  x{c:<4d} {k[:90]}")
+              "src": os.path.abspath(args.src)}
+    if "request" in paths:
+        report["request"] = profile_request(torch, profile, acts, serve,
+                                            out_dir, args.label)
+    if "stream" in paths:
+        from repro_torch.serving import cnn_engine
+        report["stream"] = profile_stream(torch, profile, acts, serve,
+                                          cnn_engine, out_dir, args.label)
+    if "decode" in paths:
+        from repro_torch.configs import all_configs
+        from repro_torch.models import transformer as T
+        from repro_torch.serving.engine import Engine
+        report["decode"] = profile_decode(torch, profile, acts, all_configs,
+                                          T, Engine)
     with open(os.path.join(out_dir, f"profile_main_path_{args.label}.json"),
               "w") as f:
         json.dump(report, f, indent=1)

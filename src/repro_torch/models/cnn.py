@@ -227,13 +227,21 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _leaf(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.uint16).copy()) \
+            .view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
 def params_from_numpy(tree, device: str | torch.device = "cuda"):
-    """The weight bridge: a ``repro.models.cnn.init_cnn`` parameter list
-    (its leaves passed through ``np.asarray``) as the port's parameters,
-    bit for bit, in the same layouts, on ``device``."""
+    """The weight bridge: a JAX parameter tree (``repro.models.cnn.
+    init_cnn``'s list, ``repro.models.transformer.init_params``' dicts),
+    its leaves passed through ``np.asarray``, as the port's parameters,
+    bit for bit (bf16 included), in the same layouts, on ``device``."""
     dev = resolve_device(device)
-    return _tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
+    return _tree_map(lambda a: _leaf(a, dev), tree)
 
 
 def _conv2d(x, w, b, stride, pad, groups=1, activation=None,
