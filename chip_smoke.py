@@ -47,7 +47,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    -- (CUDA graphs of
    back-to-back launches, CUDA events, warm L2, in turns), and print one
    ``{"kernels": [...]}`` JSON line with each kernel's launches, error,
-   times and bound.  It runs last, since it times phase 7's shapes too;
+   times and bound.  It runs after phase 10 (and before phase 11, whose
+   heavy training stays out of the kernel timings), since it times phase
+   7's shapes too;
 7. the sequence kernels' path: ``repro_torch.kernels.ops`` at batch 2, in
    fp32 and bf16, with the launch counts set to 0 just before and read
    just after -- ``flash_attention_gqa`` (causal) at Qwen3-4B's widths (32
@@ -89,7 +91,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
    forward only) to the same weights on the CPU to 1e-3 of a row's scale,
    and the MoE prefill is bitwise the same twice; no kernel of the port
    launches on this path (its mixers are plain torch, as the JAX
-   package's are plain jnp).
+   package's are plain jnp);
+11. the training path, after phase 6's timing, all in strict fp32:
+   Qwen3-4B at full width and depth (4.42 B parameters) trained for 4
+   steps by ``repro_torch.training.train_loop.train`` at the JAX
+   package's ``TrainConfig`` defaults (batch 8 x 128 tokens of
+   ``SyntheticLM``): every loss and grad norm finite, the step-0 loss
+   below ln(padded vocab) + 2, every leaf moved; prints ms a step over
+   steps 1-3, tokens/s, the optimizer's ms a step and the peak memory
+   beside 16 B a parameter.  Then Qwen3-4B (2 layers), RWKV6-7B (2),
+   Zamba2-7B (6), Granite-MoE-3B (2) and HuBERT-XLarge (2) at full
+   width, batch 2 x 16 tokens, 2 steps on the card and on the CPU from
+   the same weights: losses and grad norms within 1e-4 relative, step 0's
+   grads within 1e-4 of each leaf's largest |value|, a second card run
+   bitwise equal; and the Qwen3-4B run checkpointed after step 1,
+   restored into fresh tensors on the card, takes step 2 to the
+   uninterrupted run's loss and params bitwise.  No kernel of the port
+   launches on this path.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without ``src/repro_torch`` beside it, the script exits
@@ -1277,6 +1295,226 @@ def phase_decode(torch, configs, T, Engine, launches, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the training path
+# ---------------------------------------------------------------------------
+TRAIN_TOL = 1e-4
+TRAIN_KINDS = [("qwen3-4b", 2)] + [(name, n) for name, n, _ in BLOCK_KINDS]
+
+
+def train_arithmetic(cfg, n_params: int, tokens: int) -> dict:
+    """What a train step must at least cost: the matmul operations of
+    forward, backward and the block remat's second forward (8 x the
+    blocks' and unembedding's weights x tokens), the AdamW bytes (read
+    param, grad, mu, nu; write param, mu, nu: 28 B a parameter in fp32),
+    and fp32 params, grads, mu and nu resident."""
+    matmul = n_params - cfg.padded_vocab * cfg.d_model   # the gather is no matmul
+    flops = 8 * matmul * tokens
+    return dict(matmul_params=matmul, flops=flops,
+                flop_ms=1e3 * flops / PEAK_FLOPS["fp32"],
+                adamw_bytes=28 * n_params,
+                adamw_ms=1e3 * 28 * n_params / PEAK_BYTES,
+                state_bytes=16 * n_params)
+
+
+def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
+                SyntheticLM, launches, dev):
+    """(a) Qwen3-4B at full width and depth, fp32, trained for 4 steps by
+    ``train_loop.train`` (JAX's ``TrainConfig`` defaults: batch 8, 128
+    tokens) on ``SyntheticLM``: every loss and grad norm finite, the
+    step-0 loss below ln(padded vocab) + 2, every leaf moved; ms a step
+    over steps 1-3 (each step ends in the loop's read of its loss, which
+    waits for the step's last kernel), the optimizer's device time a step
+    (CUDA events) and the peak memory.  (b) one config of each block kind
+    at full width and a cut depth, 2 steps at batch 2 x 16 tokens on the
+    card and on the CPU from the same weights: losses and grad norms
+    within 1e-4 relative, step 0's grads within 1e-4 of each leaf's
+    largest |value|, and a second card run bitwise equal.  (c) on the
+    Qwen3-4B 2-layer run: a checkpoint after step 1, restored into fresh
+    tensors on the card, takes step 2 to the uninterrupted run's loss and
+    params, bitwise.  No kernel of the port launches on this path."""
+    import dataclasses
+    import math
+    import tempfile
+
+    from repro_torch.tree import leaves, tree_map
+
+    launches.reset()
+    rows = {}
+    # -- (a) --------------------------------------------------------------
+    cfg = configs.all_configs()["qwen3-4b"]
+    tcfg = train_loop.TrainConfig(steps=4, log_every=1)
+    real_step, real_update = train_loop.make_train_step, opt.apply_updates
+    metrics, marks, opt_events, before = [], [], [], {}
+
+    def timed_update(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real_update(*args, **kw)
+        b.record()
+        opt_events.append((a, b))
+        return out
+
+    def recording(cfg_, ocfg):
+        step_fn = real_step(cfg_, ocfg)
+
+        def step(params, opt_state, batch):
+            if not before:      # a slice of every leaf before step 0
+                for i, t in enumerate(leaves(params)):
+                    before[i] = t.reshape(-1)[:4096].clone()
+            out = step_fn(params, opt_state, batch)
+            metrics.append(out[2])
+            return out
+        return step
+
+    def log(line):
+        marks.append(time.perf_counter())
+        print(f"  {line}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)      # earlier phases' tensors
+    train_loop.make_train_step, opt.apply_updates = recording, timed_update
+    try:
+        out = train_loop.train(cfg, tcfg, log=log, device=dev)
+    finally:
+        train_loop.make_train_step, opt.apply_updates = real_step, real_update
+    peak = torch.cuda.max_memory_allocated(dev)
+    params = out["params"]
+    n_params = tree_numel(params)
+    vals = [{k: float(v) for k, v in m.items()} for m in metrics]
+    check(len(vals) == 4 and all(math.isfinite(v["loss"])
+                                 and math.isfinite(v["grad_norm"])
+                                 for v in vals),
+          f"phase 11 qwen3-4b: non-finite loss or grad norm {vals}")
+    bound = math.log(cfg.padded_vocab) + 2
+    check(vals[0]["loss"] < bound, f"phase 11 qwen3-4b: step-0 loss "
+          f"{vals[0]['loss']} not below ln(padded vocab) + 2 = {bound}")
+    stale = [i for i, t in enumerate(leaves(params))
+             if torch.equal(t.reshape(-1)[:4096], before[i])]
+    check(not stale, f"phase 11 qwen3-4b: leaves {stale} did not move")
+    step_ms = 1e3 * (marks[3] - marks[0]) / 3
+    opt_ms = sum(a.elapsed_time(b) for a, b in opt_events[1:]) / 3
+    arith = train_arithmetic(cfg, n_params, tcfg.batch * tcfg.seq_len)
+    rows["full"] = dict(
+        config="qwen3-4b", layers=cfg.num_layers, params=n_params,
+        batch=tcfg.batch, seq_len=tcfg.seq_len, steps=tcfg.steps,
+        losses=[v["loss"] for v in vals],
+        grad_norms=[v["grad_norm"] for v in vals], step_ms=step_ms,
+        tokens_per_s=tcfg.batch * tcfg.seq_len / (step_ms / 1e3),
+        optimizer_ms=opt_ms, optimizer_ms_each=[a.elapsed_time(b)
+                                                for a, b in opt_events],
+        step_ms_each=[1e3 * (b - a) for a, b in zip(marks, marks[1:])],
+        peak_bytes=peak, held_bytes=held, **arith)
+    print(f"phase 11: qwen3-4b full width and depth ({n_params / 1e9:.2f} B "
+          f"parameters, fp32), batch {tcfg.batch} x {tcfg.seq_len} tokens: "
+          f"{step_ms:.1f} ms a step over steps 1-3, "
+          f"{rows['full']['tokens_per_s']:.0f} tokens/s, optimizer "
+          f"{opt_ms:.1f} ms a step (bounds: matmuls {arith['flop_ms']:.0f} "
+          f"ms at fp32 peak, AdamW {arith['adamw_ms']:.1f} ms at HBM rate); "
+          f"peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB of "
+          f"it held by earlier phases) against "
+          f"{arith['state_bytes'] / 2**30:.2f} GiB of params, grads and "
+          f"moments ({card_line()})")
+    del out, params, metrics, before
+    torch.cuda.empty_cache()
+
+    # -- (b), (c) -----------------------------------------------------------
+    adamw = train_loop.TrainConfig().adamw
+    rows["kinds"] = []
+    for name, n_layers in TRAIN_KINDS:
+        cfg = dataclasses.replace(configs.all_configs()[name],
+                                  num_layers=n_layers)
+        data = SyntheticLM(cfg, 2, 16, seed=0)
+        batches = [data.batch_at(i) for i in range(3)]
+        card0 = T.init_params(cfg, 0, torch.float32, dev)
+        cpu0 = tree_map(lambda t: t.to("cpu", copy=True), card0)
+
+        def put(b, d):
+            return {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+
+        grads = {}
+        for where, p in (("card", card0), ("cpu", cpu0)):
+            d = p["embed"].device
+            _, _, _, g = partition.loss_and_grads(cfg, p, put(batches[0], d))
+            grads[where] = [t.cpu() for t in leaves(g)]
+            del g
+        errs = []
+        for a, b in zip(grads["card"], grads["cpu"], strict=True):
+            errs.append(float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30))
+        del grads
+        check(max(errs) <= TRAIN_TOL, f"phase 11 {name}: step-0 grads of "
+              f"the card differ from the CPU's by {max(errs)} of a leaf's "
+              f"scale")
+
+        def run(p, d, steps, resume=None):
+            """Train steps from params ``p`` (consumed); ``resume`` (a
+            directory) saves after step 1 and restores into fresh
+            tensors for the rest."""
+            step_fn = partition.make_train_step(cfg, adamw)
+            state = opt.init_state(p)
+            out = []
+            for i in range(steps):
+                if resume and i == 2:
+                    ckpt.save(resume, 2, p, state)
+                    fresh = T.init_params(cfg, 1, torch.float32, d)
+                    _, tree = ckpt.restore(resume, {
+                        "params": fresh, "opt_state": opt.init_state(fresh)})
+                    del p, state, fresh
+                    p, state = tree["params"], tree["opt_state"]
+                p, state, m = step_fn(p, state, put(batches[i], d))
+                out.append((m["loss"].cpu(), m["grad_norm"].cpu()))
+            return out, p
+
+        steps = 3 if name == "qwen3-4b" else 2
+        card, card_p = run(card0, dev, steps)
+        cpu, _ = run(cpu0, torch.device("cpu"), 2)
+        again, again_p = run(T.init_params(cfg, 0, torch.float32, dev),
+                             dev, steps)
+        rel = max(float(abs(a - b) / abs(b)) for x, y in zip(card, cpu)
+                  for a, b in zip(x, y))
+        check(all(math.isfinite(float(v)) for x in card for v in x),
+              f"phase 11 {name}: non-finite loss or grad norm {card}")
+        check(rel <= TRAIN_TOL, f"phase 11 {name}: the card's losses and "
+              f"grad norms differ from the CPU's by {rel} relative")
+        check(all(torch.equal(a, b) for x, y in zip(card, again)
+                  for a, b in zip(x, y)),
+              f"phase 11 {name}: two card runs differ: {card} vs {again}")
+        row = dict(config=name, layers=n_layers, params=tree_numel(card_p),
+                   grad_rel_err=max(errs), loss_rel_err=rel,
+                   losses=[float(x[0]) for x in card],
+                   grad_norms=[float(x[1]) for x in card])
+        if name == "qwen3-4b":
+            with tempfile.TemporaryDirectory() as tmp:
+                resumed, resumed_p = run(
+                    T.init_params(cfg, 0, torch.float32, dev), dev, 3,
+                    resume=tmp)
+                size = sum(os.path.getsize(os.path.join(tmp, f))
+                           for f in os.listdir(tmp))
+            same = torch.equal(resumed[2][0], card[2][0]) and all(
+                torch.equal(a, b) for a, b in zip(leaves(resumed_p),
+                                                  leaves(card_p)))
+            check(same, f"phase 11 {name}: step 2 after a checkpoint "
+                  f"differs from the uninterrupted run")
+            row["checkpoint_bytes"] = size
+            del resumed_p
+        rows["kinds"].append(row)
+        print(f"  {name} ({n_layers} layers, full width): card == CPU to "
+              f"{rel:.3g} (losses, grad norms) and {max(errs):.3g} of a "
+              f"leaf's scale (step-0 grads); a second card run bitwise "
+              f"equal" + ("; step 2 from a checkpoint "
+                          f"({row['checkpoint_bytes'] / 1e9:.1f} GB) bitwise "
+                          f"equal" if name == "qwen3-4b" else ""))
+        del card0, cpu0, card_p, again_p
+        torch.cuda.empty_cache()
+    counts = launches.snapshot()
+    check(not any(counts.values()), f"phase 11 launched kernels {counts}: "
+          f"the training path's mixers are plain torch")
+    return rows
+
+
 def phase_build(_build):
     """Phase 2: build every source at once; check what nvcc made of the
     tensor-core kernels.  Returns the logs and the per-kernel reports."""
@@ -1348,7 +1586,10 @@ def main() -> int:
     from repro_torch.kernels.rwkv6_wkv import RWKV_HD, plan_wkv
     from repro_torch.launch import serve
     from repro_torch.models import cnn, profiles, transformer
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import partition
     from repro_torch.serving.engine import Engine
+    from repro_torch.training import checkpoint, optimizer, train_loop
 
     t_start = time.perf_counter()
     strict_fp32()
@@ -1396,6 +1637,11 @@ def main() -> int:
     time_rows += mixer_time_rows
     print(f"phase 6: sequence kernels timed in "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_runs = phase_train(torch, configs, transformer, train_loop,
+                             partition, optimizer, checkpoint, SyntheticLM,
+                             launches, dev)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -1422,6 +1668,7 @@ def main() -> int:
                   kernel_report=kernel_report,
                   mixer_checks=mixer_rows, runs=runs, timings=time_rows,
                   stream_runs=stream_runs, decode_runs=decode_runs,
+                  train_runs=train_runs,
                   kernels=kernels, ptxas=regs,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")

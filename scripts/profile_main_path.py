@@ -2,7 +2,7 @@
 """Where a served request's time goes, on one card.
 
     python3 scripts/profile_main_path.py [--src DIR] [--label NAME]
-                                         [--paths request,stream,decode]
+                                         [--paths request,stream,decode,train]
 
 Each path is traced with ``torch.profiler`` (CPU and CUDA) after an
 untraced warm-up on the same shapes:
@@ -17,6 +17,12 @@ untraced warm-up on the same shapes:
   the card) in ``repro_torch.serving.engine.Engine``; one batch of 4
   requests of 16 prompt tokens and 8 new tokens is traced after a warm-up
   batch of the same shapes, with ``prefill`` and ``decode_step`` spans.
+- ``train``: Qwen3-4B at full width and depth (fp32) in
+  ``repro_torch.training.train_loop.train`` at the JAX package's
+  ``TrainConfig`` defaults (batch 8 x 128 tokens); step 2 is traced, from
+  the end of step 1 (synchronized) to the end of step 2 (synchronized),
+  with ``data`` (the prefetcher's ``next``), ``forward`` (``loss_fn``),
+  ``backward`` and ``optimizer`` (``apply_updates``) spans.
 
 The runtime's stages are wrapped in ``record_function`` spans here, in the
 script: stage compute (``ChainRuntime._run``), boundary encode, link send,
@@ -52,6 +58,7 @@ STREAM = ["--tiers", "3", "--wire-dtype", "int8", "--concurrency", "16",
 SPANS = ("stage_compute", "encode_boundary", "send_with_retry",
          "decode_boundary")
 DECODE_SPANS = ("prefill", "decode_step")
+TRAIN_SPANS = ("data", "forward", "backward", "optimizer")
 
 
 def _wrap(torch, owner, name, label):
@@ -197,15 +204,62 @@ def profile_decode(torch, profile, acts, all_configs, T, Engine):
     return row
 
 
+def profile_train(torch, profile, acts, all_configs, train_loop, T, opt,
+                  pipeline):
+    """One warm Qwen3-4B train step traced inside ``train()``."""
+    cfg = all_configs()["qwen3-4b"]
+    dev = torch.device("cuda")
+    tcfg = train_loop.TrainConfig(steps=4, log_every=10)
+    _wrap(torch, T, "loss_fn", "forward")
+    _wrap(torch, opt, "apply_updates", "optimizer")
+    _wrap(torch, torch.autograd, "backward", "backward")
+    _wrap(torch, pipeline.Prefetcher, "__next__", "data")
+    real_step = train_loop.make_train_step
+    state = {"calls": 0}
+
+    def traced_step(cfg_, ocfg):
+        step_fn = real_step(cfg_, ocfg)
+
+        def step(*args):
+            if state["calls"] == 2:
+                prof = state["prof"]
+            out = step_fn(*args)
+            state["calls"] += 1
+            if state["calls"] == 2:             # end of step 1
+                torch.cuda.synchronize()
+                state["prof"] = profile(activities=acts)
+                state["prof"].__enter__()
+                state["t0"] = time.perf_counter()
+            elif state["calls"] == 3:           # end of step 2
+                torch.cuda.synchronize()
+                state["wall"] = time.perf_counter() - state["t0"]
+                prof.__exit__(None, None, None)
+            return out
+        return step
+
+    train_loop.make_train_step = traced_step
+    try:
+        train_loop.train(cfg, tcfg, log=lambda line: None, device=dev)
+    finally:
+        train_loop.make_train_step = real_step
+    row = dict(config="qwen3-4b", batch=tcfg.batch, seq_len=tcfg.seq_len,
+               tokens_per_s=tcfg.batch * tcfg.seq_len / state["wall"],
+               **_summary(state["prof"], TRAIN_SPANS, 1, state["wall"]))
+    _print("train qwen3-4b batch 8 x 128, per step", row, top=10)
+    print(f"  {row['tokens_per_s']:.0f} tokens/s over the traced step")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="change")
     ap.add_argument("--paths", default="request",
-                    help="comma-separated: request, stream, decode")
+                    help="comma-separated: request, stream, decode, "
+                         "train")
     args = ap.parse_args()
     paths = args.paths.split(",")
-    bad = set(paths) - {"request", "stream", "decode"}
+    bad = set(paths) - {"request", "stream", "decode", "train"}
     if bad:
         ap.error(f"unknown paths {sorted(bad)}")
     import torch
@@ -249,6 +303,14 @@ def main() -> int:
         from repro_torch.serving.engine import Engine
         report["decode"] = profile_decode(torch, profile, acts, all_configs,
                                           T, Engine)
+    if "train" in paths:
+        from repro_torch.configs import all_configs
+        from repro_torch.data import pipeline
+        from repro_torch.models import transformer as T
+        from repro_torch.training import optimizer as opt
+        from repro_torch.training import train_loop
+        report["train"] = profile_train(torch, profile, acts, all_configs,
+                                        train_loop, T, opt, pipeline)
     with open(os.path.join(out_dir, f"profile_main_path_{args.label}.json"),
               "w") as f:
         json.dump(report, f, indent=1)

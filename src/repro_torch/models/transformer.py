@@ -9,12 +9,21 @@ bridge, re-exported here) carries ``init_params``' tree across as it is.
 Zamba2's pattern (a shared attention block after every ``attn_every``
 Mamba2 layers, weights shared across applications) walks uniform padded
 segments; the padded slots are skipped, where the JAX package computes
-them and discards the result.  Remat is a training
-memory knob and is ignored; ``loss_fn`` waits for the training port.
+them and discards the result.  In mode ``train`` with ``cfg.remat ==
+"block"`` (every config's default) each block, and each Zamba2 segment,
+runs under ``torch.utils.checkpoint``: its activations are recomputed in
+the backward pass, as ``jax.checkpoint`` does.  ``loss_fn`` is the
+training objective.
+
+The trainer differentiates per-layer views of the stacked weights
+(``unstack_blocks``): each layer's gradient is its own tensor, and an
+in-place update of a view writes through to the stack.  ``forward``
+takes either form of ``params["blocks"]``.
 
 Batch conventions:
-  batch = {"tokens": (B,S) int, "prefix_embeds": (B,P,d) (vlm/audio stub
-           frontends)}
+  batch = {"tokens": (B,S) int, "labels": (B,S) int (train),
+           "loss_mask": (B,S) f32 (train),
+           "prefix_embeds": (B,P,d) (vlm/audio stub frontends)}
 For frontend archs the embeddings REPLACE token embedding for the first P
 positions (vision patches / audio frames) -- the stub carve-out."""
 from __future__ import annotations
@@ -23,11 +32,13 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.cnn import params_from_numpy  # noqa: F401
+from repro_torch.tree import leaves, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -90,18 +101,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     return params
 
 
-def _tree_map(fn, tree):
-    """Map over dicts and NamedTuples (caches) of tensors."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return type(tree)(*(_tree_map(fn, v) for v in tree))
-    return fn(tree)
-
-
 def _layer(tree, i: int):
-    """Layer i's slice of a tree stacked on a leading axis."""
-    return _tree_map(lambda t: t[i], tree)
+    """Layer i's slice of a tree stacked on a leading axis, or entry i of
+    a list of per-layer trees (``unstack_blocks``)."""
+    if isinstance(tree, list):
+        return tree[i]
+    return tree_map(lambda t: t[i], tree)
+
+
+def unstack_blocks(tree: dict) -> dict:
+    """``tree`` (params, or AdamW moments of the same shape) with
+    ``"blocks"`` as a list of per-layer trees whose leaves are views
+    ``t[i]`` of the stacked tensors: no copy, and writing into a view
+    writes into the stack."""
+    n = leaves(tree["blocks"])[0].shape[0]
+    return {**tree, "blocks": [_layer(tree["blocks"], i) for i in range(n)]}
+
+
+def _remat(cfg: ModelConfig, train: bool, fn):
+    """``fn`` under block remat (``jax.checkpoint``'s counterpart) when
+    training with ``cfg.remat == "block"``, else ``fn`` itself."""
+    if not (train and cfg.remat == "block"):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def _stack(trees: list):
@@ -236,21 +258,27 @@ def _logits(cfg: ModelConfig, params, x):
     return (x @ unembed).float()
 
 
-def _walk(cfg, params, x, positions, cache: Cache | None, decode: bool):
-    """The layer stack over x; returns (x, aux, per-layer new states)."""
+def _walk(cfg, params, x, positions, cache: Cache | None, decode: bool,
+          train: bool = False):
+    """The layer stack over x; returns (x, aux, per-layer new states).
+    ``train`` puts each block under remat (``_remat``)."""
     kind = cfg.pattern
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     states = []
+
+    def block(p, x, st):
+        return _apply_block(
+            cfg, kind, p, x, positions=positions,
+            kv_cache=st if kind in ("attn_mlp", "attn_moe") else None,
+            ssm_state=st if kind == "mamba" else None,
+            rwkv_state=st if kind == "rwkv" else None, decode=decode)
+    block = _remat(cfg, train, block)
     for i in range(cfg.num_layers):
         st = None
         if cache is not None:
             st = _layer(cache.kv if kind in ("attn_mlp", "attn_moe")
                         else cache.rwkv if kind == "rwkv" else cache.ssm, i)
-        x, st_o, a = _apply_block(
-            cfg, kind, _layer(params["blocks"], i), x, positions=positions,
-            kv_cache=st if kind in ("attn_mlp", "attn_moe") else None,
-            ssm_state=st if kind == "mamba" else None,
-            rwkv_state=st if kind == "rwkv" else None, decode=decode)
+        x, st_o, a = block(_layer(params["blocks"], i), x, st)
         aux = aux + a
         states.append(st_o)
     return x, aux, states
@@ -282,12 +310,13 @@ def forward(cfg: ModelConfig, params, batch, *, mode: str = "train",
     B, S, _ = x.shape
     pos0 = 0 if cache is None else cache.pos
     positions = _positions(pos0, B, S, x.device)
+    train = mode == "train"
     if cfg.pattern == "mamba" and cfg.attn_every:
         x, new_cache, aux = _zamba_forward(cfg, params, x, positions, cache,
-                                           decode=False)
+                                           decode=False, train=train)
     else:
         x, aux, states = _walk(cfg, params, x, positions, cache,
-                               decode=False)
+                               decode=False, train=train)
         new_cache = None if cache is None \
             else _new_cache(cfg, cache, S, states)
     return _logits(cfg, params, x), new_cache, aux
@@ -304,33 +333,40 @@ def _zamba_masks(cfg):
 
 
 def _zamba_forward(cfg, params, x, positions, cache: Cache | None,
-                   decode: bool):
+                   decode: bool, train: bool = False):
     """Zamba2: segments of ``attn_every`` Mamba2 slots followed by the
     shared attention block.  Padded slots and a segment whose attention is
     past the last layer are skipped (the JAX package computes and masks
     them out); their cache entries are carried over unchanged and never
-    read.  Returns (x, new_cache or None, aux)."""
+    read.  ``train`` puts each segment under remat (``_remat``).  Returns
+    (x, new_cache or None, aux)."""
     n_seg, n_slots = _zamba_segments(cfg)
     k = cfg.attn_every
     shared = params["shared"]
     layer_active, attn_active = _zamba_masks(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ssm_out, skv_out = [], []
-    for s in range(n_seg):
+
+    def segment(s, x, aux, sts, skv):
+        sts = list(sts)
         for j in range(k):
-            slot = s * k + j
-            st = None if cache is None else _layer(cache.ssm, slot)
             if layer_active[s, j]:
-                x, st, a = _apply_block(
-                    cfg, "mamba", _layer(params["blocks"], slot), x,
-                    positions=positions, ssm_state=st, decode=decode)
+                x, sts[j], a = _apply_block(
+                    cfg, "mamba", _layer(params["blocks"], s * k + j), x,
+                    positions=positions, ssm_state=sts[j], decode=decode)
                 aux = aux + a
-            ssm_out.append(st)
-        skv = None if cache is None else _layer(cache.shared_kv, s)
         if attn_active[s]:
             x, skv, a = _apply_block(cfg, "attn_mlp", shared, x,
                                      positions=positions, kv_cache=skv)
             aux = aux + a
+        return x, aux, sts, skv
+    segment = _remat(cfg, train, segment)
+    for s in range(n_seg):
+        sts = [None if cache is None else _layer(cache.ssm, s * k + j)
+               for j in range(k)]
+        skv = None if cache is None else _layer(cache.shared_kv, s)
+        x, aux, sts, skv = segment(s, x, aux, sts, skv)
+        ssm_out += sts
         skv_out.append(skv)
     if cache is None:
         return x, None, aux
@@ -353,3 +389,25 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor,
         x, _, states = _walk(cfg, params, x, positions, cache, decode=True)
         new_cache = _new_cache(cfg, cache, 1, states)
     return _logits(cfg, params, x), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def loss_fn(cfg: ModelConfig, params, batch, aux_weight: float = 0.01):
+    """Next-token CE (decoder) or per-frame classification CE (encoder),
+    from fp32 logits.  Returns (loss, {"ce", "aux"})."""
+    logits, _, aux = forward(cfg, params, batch, mode="train")
+    labels = batch["labels"]
+    if cfg.frontend != "none" and logits.shape[1] != labels.shape[1]:
+        # frontend prefix positions carry no labels
+        logits = logits[:, -labels.shape[1]:]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=logits.device)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux}

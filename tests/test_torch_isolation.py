@@ -45,7 +45,10 @@ def test_the_walk_covers_every_module_of_the_port():
                    "configs/qwen3_4b.py", "configs/rwkv6_7b.py",
                    "configs/zamba2_7b.py", "kernels/ops.py",
                    "kernels/flash_attention.py", "kernels/rwkv6_wkv.py",
-                   "kernels/mamba2_ssd.py"):
+                   "kernels/mamba2_ssd.py", "data/pipeline.py",
+                   "training/optimizer.py", "training/checkpoint.py",
+                   "training/train_loop.py", "launch/train.py",
+                   "launch/partition.py", "tree.py"):
         assert f"repro_torch/{module}" in names
 
 
