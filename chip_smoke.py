@@ -23,7 +23,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 4. hold the int8 codec against its plain version, bitwise, fp32 and
    bf16, at every boundary shape the main path's plans pick (batch-1
    microbatches), at every batch-4 boundary of every model's int8 plans
-   (K 2 and 3), at the per-tensor flattens (4, 4096) and (4, 9216), and at
+   (K 2 and 3), at the per-tensor flattens (4, 4096) and (4, 9216), at
+   the transformer split's per-feature boundary (B*S, d, 1) = (512, 2560,
+   1) and (128, 2560, 1) (phase 12's, whole batch and a microbatch), and at
    a shape where the quantize planner takes a cluster of 4: every cluster
    size 1, 2, 4, 8 must be checked, the flattens and (4, 32, 28, 28) must
    take more than one CTA a group, and every slice must be held in
@@ -43,13 +45,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    each checked against the kernel first, with an explicit end-aligned
    mask where Sq < Sk; none for WKV and SSD) at the
    main paths' shapes -- the codec, fp32 and bf16, at phase 4's
-   microbatch and batch-4 boundaries and flattens, each with its bound
-   -- (CUDA graphs of
+   microbatch and batch-4 boundaries and flattens, each with its bound,
+   and apart from those sums at phase 12's (B*S, d, 1) boundaries
+   (``split_boundary`` in the kernels line) -- (CUDA graphs of
    back-to-back launches, CUDA events, warm L2, in turns), and print one
    ``{"kernels": [...]}`` JSON line with each kernel's launches, error,
-   times and bound.  It runs after phase 10 (and before phase 11, whose
-   heavy training stays out of the kernel timings), since it times phase
-   7's shapes too;
+   times and bound.  It runs after phases 10 and 12 (and before phase 11,
+   whose heavy training stays out of the kernel timings), since it times
+   phase 7's shapes too;
 7. the sequence kernels' path: ``repro_torch.kernels.ops`` at batch 2, in
    fp32 and bf16, with the launch counts set to 0 just before and read
    just after -- ``flash_attention_gqa`` (causal) at Qwen3-4B's widths (32
@@ -107,7 +110,27 @@ Phases, in order; any failed check raises and the script exits non-zero:
    bitwise equal; and the Qwen3-4B run checkpointed after step 1,
    restored into fresh tensors on the card, takes step 2 to the
    uninterrupted run's loss and params bitwise.  No kernel of the port
-   launches on this path.
+   launches on this path;
+12. the SmartSplit executors across devices, after phase 10 and before
+   phase 6's timing: Qwen3-4B at full width and depth (fp32, batch 4 x 128
+   seeded tokens) split by ``launch.smartsplit_exec.two_stage_apply``
+   with both pods on the one card, each on its own CUDA stream, at the
+   planner's cut (``smartsplit`` of the prefill profile on
+   ``TPU_EDGE_CLOUD``, as ``serve --plan-split`` plans) and at l1 1, 18
+   and 35, on the follow, bf16 and int8 wires, un-pipelined and over 4
+   microbatches, with the launch counts set to 0 just before and read
+   just after: the follow split equals the monolithic ``forward``
+   bitwise (pipelined: ``forward`` of each microbatch), bf16 is within
+   5e-2 of a row's scale, and the int8 boundary goes through the quantize
+   and dequantize kernels once a crossing; ms a forward split and
+   monolithic, and the peak memory.  Qwen3-4B cut to 4 layers, l1 = 2,
+   card against CPU: 1e-3 of a row's scale (follow), the same top-1 where
+   the CPU's top-2 margin decides it (int8).  Granite-MoE-3B at full width
+   and 2 layers, capacity factor 8: each MoE layer expert-parallel
+   (``models.moe_ep``) on a (2, 4) data x model debug mesh on the card
+   within 1e-5 of a row's scale of the local dispatch, a second run
+   bitwise equal, within 1e-4 of the same EP on the CPU, and the model's
+   logits EP against local; no kernel launches in the EP runs.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without ``src/repro_torch`` beside it, the script exits
@@ -1296,6 +1319,293 @@ def phase_decode(torch, configs, T, Engine, launches, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the SmartSplit executors across devices
+# ---------------------------------------------------------------------------
+SPLIT_BATCH, SPLIT_SEQ, SPLIT_MICRO = 4, 128, 4
+SPLIT_WIRES = ("follow", "bf16", "int8")
+SPLIT_BF16_TOL = 5e-2
+SPLIT_INT8_CPU_TOL = 1e-2
+EP_TOL = 1e-5
+EP_CPU_TOL = 1e-4
+EP_CAPACITY = 8.0       # drop-free in both dispatches, as tests/test_moe_ep.py
+# the codec at the split's per-feature boundary, the (B*S, d, 1) view of
+# Qwen3-4B's (4, 128, 2560) hidden state: whole batch and a microbatch
+SPLIT_CODEC_SHAPES = [(512, 2560, 1), (128, 2560, 1)]
+
+
+def split_cuts(configs, core, profiles):
+    """The planner's l1 for Qwen3-4B's prefill profile at seq 128, batch 4
+    (``smartsplit(prof, TPU_EDGE_CLOUD)``, as ``serve --plan-split``
+    plans), l1 = 1 and 35 (one block on either side) and 18 (halves)."""
+    cfg = configs.all_configs()["qwen3-4b"]
+    prof = profiles.transformer_profile(cfg, seq_len=SPLIT_SEQ,
+                                        batch=SPLIT_BATCH, mode="prefill",
+                                        dtype_bytes=4)
+    planned = core.smartsplit(prof, core.TPU_EDGE_CLOUD).split_index
+    return planned, sorted({planned, 1, 18, 35})
+
+
+def top1_agrees(got, want) -> tuple[bool, int]:
+    """(every position whose top-2 margin in ``want`` exceeds twice its
+    row's largest |got - want| has the same top-1 in both; the number of
+    positions too close to call)."""
+    g, w = got.float().reshape(-1, got.shape[-1]), \
+        want.float().reshape(-1, want.shape[-1])
+    top2 = w.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * (g - w).abs().amax(dim=-1)
+    same = g.argmax(-1) == w.argmax(-1)
+    return bool(same[decided].all()), int((~decided).sum())
+
+
+def phase_split(torch, configs, core, profiles, T, X, M, launches, dev):
+    """(a) Qwen3-4B at full width and depth, fp32, batch 4 x 128 seeded
+    tokens, split two ways with both pods on the one card (each on its
+    own stream) by ``launch.smartsplit_exec.two_stage_apply`` at every cut
+    of ``split_cuts``, on the follow, bf16 and int8 wires, un-pipelined
+    and pipelined over 4 microbatches, with the launch counts set to 0
+    just before and read just after: the follow split equals the
+    monolithic ``forward`` bitwise, pipelined ``forward`` of each
+    microbatch; bf16 within 5e-2 of a row's scale; int8 finite, through
+    the codec kernels once a boundary crossing.  Then ms per split
+    forward (host clock to a synchronize, warm, in turns) against the
+    monolithic forward (whole, and a microbatch at a time), and the peak
+    memory.  (b) Qwen3-4B cut to 4
+    layers, l1 = 2: the card against the CPU, 1e-3 of a row's scale
+    (follow) and the same top-1 where the CPU's margin decides it (int8).
+    (c) Granite-MoE-3B at full width and 2 layers, batch 4 x 128,
+    capacity factor 8, expert-parallel on a (2, 4) data x model debug
+    mesh on the card: each MoE layer within 1e-5 of a row's scale of the
+    local dispatch, a second run bitwise equal, the card within 1e-4 of
+    the same EP on the CPU; the model's logits EP against local.  No
+    kernel launches in (c)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe_ep
+
+    out = {}
+    rng = np.random.default_rng(12)
+    planned, cuts = split_cuts(configs, core, profiles)
+    cfg = configs.all_configs()["qwen3-4b"]
+    params = T.init_params(cfg, 0, torch.float32, dev)
+    mesh = M.make_debug_mesh((2,), ("pod",), device=dev)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (SPLIT_BATCH, SPLIT_SEQ)), device=dev)
+    bm = SPLIT_BATCH // SPLIT_MICRO
+
+    def split(l1, wire, piped, c=cfg, p=params, t=tok, m=mesh):
+        return X.two_stage_apply(c, p, t, m, l1, pipelined=piped,
+                                 microbatches=SPLIT_MICRO, wire_dtype=wire)
+
+    # -- (a) --------------------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        mono = T.forward(cfg, params, {"tokens": tok}, mode="prefill")[0]
+        mono_mb = torch.cat([T.forward(cfg, params, {
+            "tokens": tok[i * bm:(i + 1) * bm]}, mode="prefill")[0]
+            for i in range(SPLIT_MICRO)])
+        launches.reset()
+        runs = []
+        for l1 in cuts:
+            for wire in SPLIT_WIRES:
+                for piped in (False, True):
+                    got = split(l1, wire, piped)
+                    what = f"phase 12 qwen3-4b l1={l1} {wire} " \
+                        f"{'pipelined' if piped else 'un-pipelined'}"
+                    check(got.shape == mono.shape and got.dtype ==
+                          torch.float32 and bool(torch.isfinite(got).all()),
+                          f"{what}: logits {tuple(got.shape)} {got.dtype}, "
+                          f"or not finite")
+                    want = mono_mb if piped else mono
+                    _, rel = row_err(got, want)
+                    same, close = top1_agrees(got, want)
+                    if wire == "follow":
+                        check(torch.equal(got, want), f"{what}: differs "
+                              f"from the monolithic forward by {rel} of a "
+                              f"row's scale")
+                    elif wire == "bf16":
+                        check(rel <= SPLIT_BF16_TOL, f"{what}: {rel} of a "
+                              f"row's scale from the monolithic forward")
+                    runs.append(dict(l1=l1, wire=wire, pipelined=piped,
+                                     rel_err=rel, top1_decided_agree=same,
+                                     top1_too_close=close))
+                    del got
+        torch.cuda.synchronize()
+        counts = launches.snapshot()
+    crossings = len(cuts) * (1 + SPLIT_MICRO)
+    check(counts["quantize"] == crossings and
+          counts["dequantize"] == crossings and
+          not any(v for k, v in counts.items()
+                  if k not in ("quantize", "dequantize")),
+          f"phase 12: split path launches {counts}, not {crossings} "
+          f"quantize and dequantize (one a boundary crossing of the int8 "
+          f"runs) and nothing else")
+    int8_err = max(r["rel_err"] for r in runs if r["wire"] == "int8")
+    bf16_err = max(r["rel_err"] for r in runs if r["wire"] == "bf16")
+    int8_top1 = all(r["top1_decided_agree"] for r in runs
+                    if r["wire"] == "int8")
+    print(f"phase 12: split path launches {json.dumps(counts)}")
+    print(f"phase 12: qwen3-4b full width and depth, batch {SPLIT_BATCH} x "
+          f"{SPLIT_SEQ}, both pods on one card: l1 in {cuts} (planner "
+          f"{planned}); follow split == monolithic bitwise, pipelined (m="
+          f"{SPLIT_MICRO}) == monolithic a microbatch bitwise; bf16 within "
+          f"{bf16_err:.3g}, int8 within {int8_err:.3g} of a row's scale "
+          f"(int8 top-1 equal where decided: {int8_top1})")
+
+    def host_ms(fn, reps=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    with torch.no_grad():
+        # the monolithic forward whole and a microbatch at a time (what
+        # the pipelined split computes, without its second stream)
+        timers = {"monolithic": lambda: T.forward(cfg, params,
+                                                   {"tokens": tok},
+                                                   mode="prefill"),
+                  "monolithic a microbatch at a time": lambda: [
+                      T.forward(cfg, params, {"tokens": tok[i * bm:(i + 1)
+                                                            * bm]},
+                                mode="prefill") for i in range(SPLIT_MICRO)]}
+        for l1 in sorted({planned, 18}):
+            for wire in ("follow", "int8"):
+                for piped in (False, True):
+                    timers[f"l1={l1} {wire}"
+                           f"{' pipelined' if piped else ''}"] = \
+                        (lambda l1=l1, wire=wire, piped=piped:
+                         split(l1, wire, piped))
+        for fn in timers.values():
+            fn()                                        # warm
+        total = dict.fromkeys(timers, 0.0)
+        for r in range(2):
+            for name in (list(timers) if r == 0 else list(timers)[::-1]):
+                total[name] += host_ms(timers[name]) / 2
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = tree_numel(params)
+    out["qwen"] = dict(cuts=cuts, planned=planned, runs=runs,
+                       launches=counts, ms=total, peak_bytes=peak,
+                       param_bytes=4 * n_params)
+    print(f"phase 12: ms a forward (host clock, {card_line()}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in total.items()))
+    print(f"phase 12: peak {peak / 2**30:.2f} GiB against "
+          f"{4 * n_params / 2**30:.2f} GiB of fp32 weights")
+    del params, mono, mono_mb
+    torch.cuda.empty_cache()
+
+    # -- (b) --------------------------------------------------------------
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    p4 = T.init_params(cfg4, 0, torch.float32, dev)
+    p4_cpu = tree_to(p4, "cpu")
+    cpu_mesh = M.make_debug_mesh((2,), ("pod",), device="cpu")
+    cut = []
+    with torch.no_grad():
+        for wire in ("follow", "int8"):
+            for piped in (False, True):
+                card_out = split(2, wire, piped, c=cfg4, p=p4).cpu()
+                cpu_out = split(2, wire, piped, c=cfg4, p=p4_cpu,
+                                t=tok.cpu(), m=cpu_mesh)
+                _, rel = row_err(card_out, cpu_out)
+                same, close = top1_agrees(card_out, cpu_out)
+                what = f"phase 12 qwen3-4b 4 layers l1=2 {wire}" \
+                    f"{' pipelined' if piped else ''}"
+                if wire == "follow":
+                    check(rel <= LOGIT_TOL, f"{what}: the card differs from "
+                          f"the CPU by {rel} of a row's scale")
+                else:
+                    check(same and rel <= SPLIT_INT8_CPU_TOL,
+                          f"{what}: the card's top-1 differs from the CPU's "
+                          f"where the margin decides it, or {rel} of a "
+                          f"row's scale")
+                cut.append(dict(wire=wire, pipelined=piped, rel_err=rel,
+                                top1_too_close=close))
+    out["qwen_4_layers"] = cut
+    print("  qwen3-4b 4 layers, l1=2: card == CPU to " + ", ".join(
+        f"{c['wire']}{' pipelined' if c['pipelined'] else ''} "
+        f"{c['rel_err']:.3g}" for c in cut) + " of a row's scale (int8: "
+        f"top-1 equal where decided; "
+        f"{max(c['top1_too_close'] for c in cut)} positions too close)")
+    del p4, p4_cpu
+    torch.cuda.empty_cache()
+
+    # -- (c) --------------------------------------------------------------
+    gcfg = dataclasses.replace(configs.all_configs()["granite-moe-3b-a800m"],
+                               num_layers=2,
+                               moe_capacity_factor=EP_CAPACITY)
+    gp = T.init_params(gcfg, 0, torch.float32, dev)
+    gtok = torch.as_tensor(rng.integers(0, gcfg.vocab_size,
+                                        (SPLIT_BATCH, SPLIT_SEQ)), device=dev)
+    ep_mesh = M.make_debug_mesh((2, 4), ("data", "model"), device=dev)
+    ep_cpu = M.make_debug_mesh((2, 4), ("data", "model"), device="cpu")
+    launches.reset()
+    layers, gen = [], torch.Generator().manual_seed(12)
+    try:
+        with torch.no_grad():
+            for i in range(gcfg.num_layers):
+                lp = {k: v[i] for k, v in gp["blocks"]["moe"].items()}
+                x = (0.5 * torch.randn((SPLIT_BATCH, SPLIT_SEQ,
+                                        gcfg.d_model), generator=gen)).to(dev)
+                moe_ep.EP_MESH = None
+                local, aux_local = L.moe(gcfg, lp, x)
+                moe_ep.EP_MESH = ep_mesh
+                check(moe_ep.ep_enabled(gcfg, x.shape),
+                      "phase 12 granite: EP not enabled on the mesh")
+                ep, aux = L.moe(gcfg, lp, x)
+                again, _ = L.moe(gcfg, lp, x)
+                moe_ep.EP_MESH = ep_cpu
+                ep_host, aux_host = L.moe(gcfg, tree_to(lp, "cpu"), x.cpu())
+                _, rel = row_err(ep, local)
+                _, rel_cpu = row_err(ep.cpu(), ep_host)
+                what = f"phase 12 granite-moe-3b layer {i}"
+                check(rel <= EP_TOL, f"{what}: EP differs from the local "
+                      f"dispatch by {rel} of a row's scale")
+                check(torch.equal(again, ep), f"{what}: two EP runs differ")
+                check(rel_cpu <= EP_CPU_TOL, f"{what}: card EP differs from "
+                      f"CPU EP by {rel_cpu} of a row's scale")
+                aux_gap = abs(float(aux) - float(aux_local))
+                check(aux_gap < 0.05 and abs(float(aux) - float(aux_host))
+                      <= 1e-5, f"{what}: aux {float(aux)} against local "
+                      f"{float(aux_local)}, CPU EP {float(aux_host)}")
+                moe_ep.EP_MESH = ep_mesh
+                ms_ep = host_ms(lambda: L.moe(gcfg, lp, x))
+                moe_ep.EP_MESH = None
+                ms_local = host_ms(lambda: L.moe(gcfg, lp, x))
+                layers.append(dict(layer=i, rel_err=rel, cpu_rel_err=rel_cpu,
+                                   aux=float(aux), aux_local=float(aux_local),
+                                   ms_ep=ms_ep, ms_local=ms_local))
+            moe_ep.EP_MESH = None
+            local_logits = T.forward(gcfg, gp, {"tokens": gtok},
+                                     mode="prefill")[0]
+            moe_ep.EP_MESH = ep_mesh
+            ep_logits = T.forward(gcfg, gp, {"tokens": gtok},
+                                  mode="prefill")[0]
+    finally:
+        moe_ep.EP_MESH = None
+    _, rel_logits = row_err(ep_logits, local_logits)
+    check(bool(torch.isfinite(ep_logits).all()) and rel_logits <= EP_CPU_TOL,
+          f"phase 12 granite-moe-3b: EP logits {rel_logits} of a row's scale "
+          f"from the local dispatch's, or not finite")
+    counts = launches.snapshot()
+    check(not any(counts.values()), f"phase 12 EP launched kernels "
+          f"{counts}: the MoE dispatch is plain torch")
+    out["granite_ep"] = dict(layers=layers, logits_rel_err=rel_logits)
+    print(f"  granite-moe-3b (2 layers, full width, cf {EP_CAPACITY}) EP on "
+          f"a (2, 4) data x model mesh on one card: " + "; ".join(
+              f"layer {r['layer']}: {r['rel_err']:.3g} of scale from local, "
+              f"{r['cpu_rel_err']:.3g} from CPU EP, {r['ms_ep']:.2f} ms EP "
+              f"against {r['ms_local']:.2f} local" for r in layers)
+          + f"; a second EP run bitwise equal; logits {rel_logits:.3g}")
+    del gp, ep_logits, local_logits
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: the training path
 # ---------------------------------------------------------------------------
 TRAIN_TOL = 1e-4
@@ -1587,7 +1897,9 @@ def main() -> int:
     from repro_torch.launch import serve
     from repro_torch.models import cnn, profiles, transformer
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import partition
+    from repro_torch.launch import smartsplit_exec
     from repro_torch.serving.engine import Engine
     from repro_torch.training import checkpoint, optimizer, train_loop
 
@@ -1605,8 +1917,8 @@ def main() -> int:
 
     worst, conv_rows = phase_conv(torch, F, cnn, kconv, ref, dev)
     micro, batch4, extra = codec_shapes(cnn, core, profiles)
-    codec_worst, codec_plans = phase_codec(torch, kquant, ref,
-                                           micro + batch4 + extra, dev)
+    codec_worst, codec_plans = phase_codec(
+        torch, kquant, ref, micro + batch4 + extra + SPLIT_CODEC_SHAPES, dev)
     worst.update(codec_worst)
     counts, runs = phase_main(torch, cnn, serve, launches, kquant, runtime,
                               dev)
@@ -1628,8 +1940,20 @@ def main() -> int:
     decode_runs = phase_decode(torch, configs, transformer, Engine, launches,
                                dev)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    split_runs = phase_split(torch, configs, core, profiles, transformer,
+                             smartsplit_exec, mesh_lib, launches, dev)
+    split_counts = split_runs["qwen"]["launches"]
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
     agg, time_rows = phase_time(torch, F, cnn, kconv, kquant, ref,
                                 micro + batch4, dev)
+    split_agg = {}
+    for shape in SPLIT_CODEC_SHAPES:
+        for dname, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            codec_time(torch, kquant, ref, shape, dname, dtype,
+                       torch.Generator().manual_seed(20), dev, split_agg,
+                       time_rows)
     t0 = time.perf_counter()
     mixer_agg, mixer_time_rows = phase_time_mixers(torch, F, kops, ref,
                                                    cases, inputs)
@@ -1651,6 +1975,13 @@ def main() -> int:
             "replaces": replaces, "launches": counts[name],
             **({"launches_stream": stream_counts[name]}
                if name in stream_counts else {}),
+            **({"launches_split": split_counts[name],
+                "split_boundary": dict(
+                    shapes=[list(s) for s in SPLIT_CODEC_SHAPES],
+                    **{k: split_agg[name][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "library_ms",
+                        "ms_bf16", "bound_ms_bf16", "library_ms_bf16")})}
+               if name in split_agg else {}),
             "max_abs_err": worst[(name, "fp32")], "ms": a["ms"],
             "plain_ms": a["plain_ms"],
             "bound_ms": a["bound_ms"],
@@ -1668,6 +1999,7 @@ def main() -> int:
                   kernel_report=kernel_report,
                   mixer_checks=mixer_rows, runs=runs, timings=time_rows,
                   stream_runs=stream_runs, decode_runs=decode_runs,
+                  split_runs=split_runs,
                   train_runs=train_runs,
                   kernels=kernels, ptxas=regs,
                   seconds=time.perf_counter() - t_start)

@@ -216,8 +216,11 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor):
     Tokens are sorted by expert id (stably) and scattered into an (E*C)
     slot table, so compute stays proportional to *active* parameters.
     Assignments beyond an expert's capacity C are dropped; aux carries the
-    router load-balance loss.  Local dispatch only: the JAX package's
-    expert-parallel branch needs a mesh, which the port does not have.
+    router load-balance loss.
+
+    When expert parallelism is configured (``moe_ep.EP_MESH`` set to a
+    mesh whose model axis the experts divide), dispatch goes through the
+    all-to-all path instead -- see ``models/moe_ep.py``.
 
     The combine gathers each token's K expert outputs and sums them in
     top-k order (a dropped assignment adds nothing), where the JAX
@@ -225,6 +228,9 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor):
     order on every device, so repeated runs on the card agree bitwise,
     which an atomic ``index_add_`` would not promise.  It may differ from
     JAX's sum in the last bits."""
+    from repro_torch.models import moe_ep
+    if moe_ep.ep_enabled(cfg, x.shape):
+        return moe_ep.moe_expert_parallel(cfg, p, x)
     B, S, d = x.shape
     T = B * S
     E, K = cfg.num_experts, cfg.experts_per_token

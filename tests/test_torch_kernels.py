@@ -189,10 +189,14 @@ def test_codec_zero_channel_scale_is_one():
 # Codec launch geometry, checked on the CPU
 # ---------------------------------------------------------------------------
 # (B, C, S) views: one group (C = 1, a flatten; 1000 leaves a short last
-# chunk), ragged rows (S 49, 36, 25, 7), batch 1 and 4, 16-aligned rows
+# chunk), ragged rows (S 49, 36, 25, 7), batch 1 and 4, 16-aligned rows;
+# and the transformer split's per-feature boundary (B*S, d, 1), each
+# group's elements d apart, as the CPU tests' split ships it (tokens 4 x
+# 16 at d 256, whole and in 2 microbatches)
 WALK_SHAPES = [(1, 1, 16384), (1, 1, 1000), (4, 1, 49), (1, 160, 49),
                (4, 160, 49), (1, 256, 36), (4, 256, 36), (1, 32, 784),
-               (4, 32, 784), (4, 64, 144), (2, 6, 25), (1, 3, 7)]
+               (4, 32, 784), (4, 64, 144), (2, 6, 25), (1, 3, 7),
+               (64, 256, 1), (32, 256, 1)]
 _DT = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -346,6 +350,21 @@ def test_codec_plans_at_the_served_boundaries():
             assert d.vec == (4 if bcs[2] >= 4 else 1)
         big = kquant.plan_quantize(1, 1, 2**21, dtype)
         assert big.k == 8 and not big.resident
+
+
+def test_codec_plans_at_the_split_boundaries():
+    """The Qwen3-4B split's boundary, (4 x 128, 2560, 1) whole and (128,
+    2560, 1) a microbatch of 4: one CTA a group of B*S elements d apart,
+    one element a chunk, held in registers; dequantize one value a
+    thread at a time."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for bcs in ((512, 2560, 1), (128, 2560, 1)):
+            plan = kquant.plan_quantize(*bcs, dtype)
+            assert (plan.k, plan.vec, plan.C, plan.S) == (1, 1, 2560, 1)
+            assert plan.resident and plan.threads == max(32, bcs[0])
+            assert plan.index(7, 3) == 3 * 2560 + 7
+            d = kquant.plan_dequantize(*bcs, dtype)
+            assert d.vec == 1 and d.n == bcs[0] * 2560
 
 
 def test_codec_plans_narrow_their_copies_to_the_alignment():
