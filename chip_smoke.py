@@ -16,7 +16,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. hold the conv kernels against their plain PyTorch version at every
    distinct conv (and fused conv+act+pool) shape of AlexNet, VGG16 and
    MobileNetV2 at 224 px, batch 1, of AlexNet and MobileNetV2 at batch
-   4, and of two depthwise convs with a fused pool, fp32 (1e-4 of scale)
+   4, of AlexNet at 64 and 96 px, batches 1-4 (phase 13a's examples),
+   each with every cut end, and of two depthwise convs with a fused pool,
+   fp32 (1e-4 of scale)
    and bf16 (2e-2 of scale); outside VGG16 every fused conv equals the
    unfused conv followed by its activation and pool, bitwise, and at
    every shape a batch-4 launch equals four batch-1 launches, bitwise;
@@ -25,7 +27,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    microbatches), at every batch-4 boundary of every model's int8 plans
    (K 2 and 3), at the per-tensor flattens (4, 4096) and (4, 9216), at
    the transformer split's per-feature boundary (B*S, d, 1) = (512, 2560,
-   1) and (128, 2560, 1) (phase 12's, whole batch and a microbatch), and at
+   1) and (128, 2560, 1) (phase 12's, whole batch and a microbatch), at the
+   int8 quickstart's boundary (phase 13a), and at
    a shape where the quantize planner takes a cluster of 4: every cluster
    size 1, 2, 4, 8 must be checked, the flattens and (4, 32, 28, 28) must
    take more than one CTA a group, and every slice must be held in
@@ -86,7 +89,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    req/s, p50 and p99;
 10. the transformer decode path: Qwen3-4B at full width and depth (fp32,
    weights from a seeded generator on the card) serves 8 greedy requests
-   through ``repro_torch.serving.engine.Engine`` (tokens/s printed), and
+   through ``repro_torch.serving.engine.Engine`` (tokens/s printed),
+   decode steps alone at batch 4 are timed on CUDA events, and
    prefill of n+1 tokens equals prefill of n plus one ``decode_step`` to
    1e-3 of a row's scale; RWKV6-7B, Zamba2-7B (one shared-block
    application), Granite-MoE-3B and HuBERT-XLarge at full width and cut
@@ -130,7 +134,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (``models.moe_ep``) on a (2, 4) data x model debug mesh on the card
    within 1e-5 of a row's scale of the local dispatch, a second run
    bitwise equal, within 1e-4 of the same EP on the CPU, and the model's
-   logits EP against local; no kernel launches in the EP runs.
+   logits EP against local; no kernel launches in the EP runs;
+13. after phase 11: (a) the four ``examples/torch_*.py`` on the card
+   (each asserts what its JAX counterpart asserts), then the quickstart
+   again under ``REPRO_WIRE_DTYPE=int8``, each with the launch counts
+   set to 0 just before and read just after: the follow-wire
+   quickstart's split logits equal the monolithic ones bitwise, the int8
+   run's share their top-1 and launch both codec kernels, and every CNN
+   example launches the conv kernels; every conv and codec geometry
+   launched is recorded, and each must be one phases 3-4 held against the
+   plain version; (b) ``launch.dryrun.lower_cell`` (meta tensors) for
+   Qwen3-4B at full width and depth, fp32, on a one-device mesh, at
+   phase 11's train cell and phase 10's decode shape: the flops must
+   equal ``matmul_flops``'s count by hand and the extrapolated count the
+   real depth's, and each roofline bound (``analysis.roofline``, the
+   H100's data-sheet rates) is printed beside the step time phase 11
+   measured and phase 10's decode step alone, and the train flops beside
+   ``train_arithmetic``'s.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without ``src/repro_torch`` beside it, the script exits
@@ -138,6 +158,7 @@ non-zero before printing any result.  Per-shape details go to
 ``chiprun_out/chip_smoke.json``."""
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -146,11 +167,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-
-# Published H100 SXM peaks (NVIDIA data sheet, dense): fp32 on the CUDA
-# cores, bf16 on the tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
-PEAK_BYTES = 3.35e12
+sys.path.insert(0, SRC)
+try:
+    # Published H100 SXM peaks (NVIDIA data sheet, dense), from their one
+    # source in the port (a module of plain constants): fp32 on the CUDA
+    # cores, bf16 on the tensor cores, HBM3 bandwidth.
+    from repro_torch.analysis.roofline import H100_HBM_BW, H100_PEAK_FLOPS
+except ImportError:
+    sys.exit(f"chip_smoke: no src/repro_torch beside {__file__}: run it "
+             f"from a checkout of the repository")
+PEAK_FLOPS = H100_PEAK_FLOPS
+PEAK_BYTES = H100_HBM_BW
 # The rate of the arithmetic the dense conv kernel runs: fp32 storage as
 # three TF32 tensor-core passes (495 TFLOP/s each), bf16 as one bf16 pass.
 CONV_PEAK = {"fp32": 495e12 / 3, "bf16": 989e12}
@@ -225,21 +252,38 @@ def row_err(got, want) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 # Phase 3: conv kernels vs plain
 # ---------------------------------------------------------------------------
+def conv_key(x_shape, w_shape, stride, pad, groups, activation, pool_k,
+             pool_s) -> tuple:
+    """One conv geometry (the wrapper takes pool_s 0 as pool_k)."""
+    return (tuple(x_shape), tuple(w_shape), stride, pad, groups, activation,
+            pool_k, (pool_s or pool_k) if pool_k else 0)
+
+
 def conv_cases(cnn, models):
-    """Distinct conv calls of the fusion walk over each (model, batch),
-    plus the unfused ends a split can leave (conv alone, conv+act without
-    pool)."""
+    """Distinct conv calls of the fusion walk over each (model, batch,
+    input shape), plus the unfused ends a split can leave (conv alone,
+    conv+act without pool)."""
     seen = {}
-    for name, batch in models:
+    for name, batch, in_shape in models:
         layers = cnn.CNN_MODELS[name]
-        calls = cnn.conv_launches(layers, batch=batch)
+        calls = cnn.conv_launches(layers, in_shape, batch=batch)
         for cut in range(1, len(layers)):
-            calls += cnn.conv_launches(layers, batch=batch, stop=cut)[-1:]
+            calls += cnn.conv_launches(layers, in_shape, batch=batch,
+                                       stop=cut)[-1:]
         for c in calls:
-            key = (c["x_shape"], c["w_shape"], c["stride"], c["pad"],
-                   c["groups"], c["activation"], c["pool_k"], c["pool_s"])
+            key = conv_key(c["x_shape"], c["w_shape"], c["stride"], c["pad"],
+                           c["groups"], c["activation"], c["pool_k"],
+                           c["pool_s"])
             seen.setdefault(key, dict(c, model=name))
     return list(seen.values())
+
+
+# The CNN geometries of the examples phase 13a runs, beyond the 224 px
+# batch-1 quickstart: AlexNet at 64 px through the chain runtime (batch
+# 4 in microbatches of 2) and monolithic (torch_split_serving), and the
+# 64 px and 96 px buckets of torch_batch_serving at batches 1-4.
+EXAMPLE_CNNS = [("alexnet", batch, (3, px, px)) for px in (64, 96)
+                for batch in (1, 2, 3, 4)]
 
 
 # The depthwise kernel's fused pool, which no served model reaches (the
@@ -276,9 +320,12 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
     n_fused = n_batch = 0
     # batch 1 (and the int8 runs' microbatches) and the follow-wire runs'
     # batch 4, where the planner may pick another blocking
-    cases = conv_cases(cnn, [("alexnet", 1), ("vgg16", 1),
-                             ("mobilenetv2", 1), ("alexnet", 4),
-                             ("mobilenetv2", 4)])
+    at224 = cnn.INPUT_SHAPE
+    cases = conv_cases(cnn, [("alexnet", 1, at224), ("vgg16", 1, at224),
+                             ("mobilenetv2", 1, at224),
+                             ("alexnet", 4, at224),
+                             ("mobilenetv2", 4, at224)] + EXAMPLE_CNNS)
+    checked = set()
     for call in cases + DW_POOL_CASES:
         for dname, dtype, tol in (("fp32", torch.float32, FP32_TOL),
                                   ("bf16", torch.bfloat16, BF16_TOL)):
@@ -294,6 +341,9 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
                   f"{kind} {dname} {call}: max abs err {err} > "
                   f"{tol} * {scale}")
             worst[(kind, dname)] = max(worst.get((kind, dname), 0.0), err)
+            checked.add(conv_key(*(call[k] for k in (
+                "x_shape", "w_shape", "stride", "pad", "groups",
+                "activation", "pool_k", "pool_s"))) + (dname,))
             fused = call["activation"] is not None or call["pool_k"]
             if fused and call["model"] != "vgg16":
                 plain = dict(kw, activation=None, pool_k=0, pool_s=0)
@@ -324,7 +374,7 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
           f"bitwise; {n_batch} batch-4 launches equal four batch-1 "
           f"launches bitwise; worst abs err " + ", ".join(
               f"{k}/{d}={v:.3g}" for (k, d), v in sorted(worst.items())))
-    return worst, rows
+    return worst, rows, checked
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +408,23 @@ def codec_shapes(cnn, core, profiles):
     batch4 = boundary_shapes(cnn, core, profiles, microbatches=1,
                              models=tuple(cnn.CNN_MODELS), tiers=(2, 3))
     return micro, batch4 + [(4, 4096), (4, 9216)], [(4, 32, 56, 56)]
+
+
+def quickstart_boundary(cnn, core, profiles) -> tuple:
+    """The boundary ``examples/torch_quickstart.py`` sends through the
+    codec under ``REPRO_WIRE_DTYPE=int8``: AlexNet at 224 px, batch 1,
+    cut where its plan cuts."""
+    plan = core.smartsplit(profiles.cnn_profile("alexnet"),
+                           core.PAPER_ENV_J6, f3_mode="activations")
+    outs = cnn.shapes_through(cnn.CNN_MODELS["alexnet"])
+    return (1,) + tuple(outs[plan.split_index - 1])
+
+
+def codec_key(kquant, shape, dname) -> tuple:
+    """One codec geometry: the (B, C, S) view both kernels take, and the
+    dtype."""
+    axis = kquant.default_channel_axis(len(shape))
+    return kquant._bcs(tuple(shape), axis) + (dname,)
 
 
 def quant_plan_of(kquant, torch, shape, dtype):
@@ -409,7 +476,7 @@ def phase_codec(torch, kquant, ref, shapes, dev):
               f"{s}: {plans[(s, 'fp32')]['k']}"
               for s in map(tuple, shapes)) + "; every slice held in "
           "registers")
-    return worst, plans
+    return worst, plans, {codec_key(kquant, s, d) for s, d in plans}
 
 
 # ---------------------------------------------------------------------------
@@ -1172,6 +1239,7 @@ def phase_stream(torch, cnn, serve, launches, quant, dev):
 # Phase 10: the transformer decode path
 # ---------------------------------------------------------------------------
 DECODE_TOL = 1e-3
+DECODE_STEPS_TIMED = 8
 BLOCK_KINDS = [  # (config, layers kept, forward only)
     ("rwkv6-7b", 2, False),
     ("zamba2-7b", 6, False),        # one application of the shared block
@@ -1245,6 +1313,22 @@ def phase_decode(torch, configs, T, Engine, launches, dev):
     _, rel = row_err(step[:, -1], full[:, -1])
     check(rel <= DECODE_TOL, f"phase 10 qwen3-4b: prefill + decode_step "
           f"differs from the longer prefill by {rel} of a row's scale")
+    # decode steps alone at the served shape (batch 4, a 128-slot cache),
+    # on CUDA events after two untimed steps: the time phase 13b's decode
+    # bound, which has no prefill, is held to
+    dtok = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 17)), device=dev)
+    _, dcache, _ = T.forward(cfg, params, {"tokens": dtok[:, :16]},
+                             mode="prefill", cache=T.init_cache(
+                                 cfg, 4, 128, torch.float32, dev))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(2 + DECODE_STEPS_TIMED):
+        if i == 2:
+            ev[0].record()
+        _, dcache = T.decode_step(cfg, params, dtok[:, 16:], dcache)
+    ev[1].record()
+    torch.cuda.synchronize()
+    decode_step_ms = ev[0].elapsed_time(ev[1]) / DECODE_STEPS_TIMED
     # a batch (one length bucket of up to 4 prompts) is one prefill and 7
     # decode steps: tokens/s depends on how the prompts' lengths bucket,
     # ms a pass does not
@@ -1253,14 +1337,16 @@ def phase_decode(torch, configs, T, Engine, launches, dev):
     qwen = dict(config="qwen3-4b", params=n_params, requests=len(reqs),
                 batches=batches, passes=passes, tokens=toks, seconds=dt,
                 tokens_per_s=toks / dt, ms_per_pass=1e3 * dt / passes,
+                decode_step_ms=decode_step_ms,
                 decode_vs_prefill_rel_err=rel,
                 peak_bytes=torch.cuda.max_memory_allocated(dev))
     print(f"phase 10: qwen3-4b full width and depth ({n_params / 1e9:.2f} B "
           f"parameters, fp32): {len(reqs)} requests, {toks} tokens in "
           f"{batches} batches, {dt:.2f} s, {toks / dt:.1f} tokens/s, "
-          f"{1e3 * dt / passes:.1f} ms a pass (host clock, {card_line()}); "
-          f"decode == prefill to {rel:.3g} of scale")
-    del params, eng, full, cache, step
+          f"{1e3 * dt / passes:.1f} ms a pass (host clock, {card_line()}), "
+          f"{decode_step_ms:.2f} ms a decode step alone (batch 4, CUDA "
+          f"events); decode == prefill to {rel:.3g} of scale")
+    del params, eng, full, cache, step, dcache
     torch.cuda.empty_cache()
 
     rows = [qwen]
@@ -1627,6 +1713,27 @@ def train_arithmetic(cfg, n_params: int, tokens: int) -> dict:
                 state_bytes=16 * n_params)
 
 
+def matmul_flops(cfg, batch: int, seq: int, mode: str) -> int:
+    """The matmul flops of a step of a dense attention + gated-MLP model
+    (Qwen3-4B), counted by hand: 2 x tokens x each projection's weights,
+    QK^T and PV over every key slot (the port masks, it does not skip:
+    ``seq`` keys, the cache's slots in decode), and the unembedding.  A
+    train step adds the backward (twice the forward) and block remat's
+    recompute of each block less its last product (w_d's): torch's
+    non-reentrant checkpoint stops once it has rebuilt what the backward
+    reads, and no gradient reads w_d's output."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = 1 if mode == "decode" else seq
+    tok = batch * q
+    layer = 2 * tok * (2 * d * h * hd + 2 * d * kv * hd + 3 * d * cfg.d_ff) \
+        + 2 * 2 * batch * h * q * seq * hd
+    unembed = 2 * tok * d * cfg.padded_vocab
+    if mode != "train":
+        return cfg.num_layers * layer + unembed
+    recompute = layer - 2 * tok * cfg.d_ff * d
+    return cfg.num_layers * (3 * layer + recompute) + 3 * unembed
+
+
 def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
                 SyntheticLM, launches, dev):
     """(a) Qwen3-4B at full width and depth, fp32, trained for 4 steps by
@@ -1825,6 +1932,205 @@ def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the examples and the dry-run's roofline
+# ---------------------------------------------------------------------------
+EXAMPLES = ("torch_quickstart", "torch_split_serving", "torch_batch_serving",
+            "torch_train_small")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` takes argv)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def recording_geometries(torch, kconv, kquant, seen: dict):
+    """Record the geometry of every conv and codec launch on the card
+    into ``seen`` (``conv_key`` / ``codec_key`` with the dtype): the
+    models call ``kconv.conv2d`` and the codec wrappers call
+    ``kquant.plan_quantize`` / ``plan_dequantize`` by module attribute,
+    which are wrapped for the duration; ``seen["calls"]`` counts the
+    calls recorded, to be held to the launch counts."""
+    names = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+    conv, plan_q, plan_d = (kconv.conv2d, kquant.plan_quantize,
+                            kquant.plan_dequantize)
+
+    def conv2d(x, w, *, stride=1, pad=0, bias=None, activation=None,
+               groups=1, pool_k=0, pool_s=0):
+        if x.is_cuda:
+            seen["calls"]["conv"] += 1
+            seen["conv"].add(conv_key(x.shape, w.shape, stride, pad, groups,
+                                      activation, pool_k, pool_s)
+                             + (names[x.dtype],))
+        return conv(x, w, stride=stride, pad=pad, bias=bias,
+                    activation=activation, groups=groups, pool_k=pool_k,
+                    pool_s=pool_s)
+
+    def planner(plan, kind):
+        def wrapped(B, C, S, dtype=torch.float32, *args, **kw):
+            seen["calls"][kind] += 1
+            seen[kind].add((B, C, S, names[dtype]))
+            return plan(B, C, S, dtype, *args, **kw)
+        return wrapped
+
+    kconv.conv2d = conv2d
+    kquant.plan_quantize = planner(plan_q, "quantize")
+    kquant.plan_dequantize = planner(plan_d, "dequantize")
+    try:
+        yield
+    finally:
+        kconv.conv2d, kquant.plan_quantize, kquant.plan_dequantize = \
+            conv, plan_q, plan_d
+
+
+def phase_examples(torch, launches, kconv, kquant, conv_checked,
+                   codec_checked) -> dict:
+    """Phase 13a: the four examples on the card (each asserts what its
+    JAX counterpart asserts), then the quickstart again under
+    ``REPRO_WIRE_DTYPE=int8``; each run's launch counts set to 0 just
+    before and read just after.  The follow-wire quickstart's split
+    logits must equal the monolithic ones bitwise (as phase 5's), the
+    int8 run's share their top-1 (the quickstart's own bound); the CNN
+    examples must launch the conv kernels, the int8 run the codec's.
+    Every conv and codec geometry the examples launched must be one that
+    phases 3 and 4 held against the plain version (``conv_checked``,
+    ``codec_checked``)."""
+    runs = {}
+    kinds = ("conv", "quantize", "dequantize")
+    seen = {kind: set() for kind in kinds}
+    seen["calls"] = dict.fromkeys(kinds, 0)
+    launched = dict.fromkeys(kinds, 0)
+    for name, wire in [(n, None) for n in EXAMPLES] \
+            + [("torch_quickstart", "int8")]:
+        label = name if wire is None else f"{name} {wire}"
+        old = os.environ.pop("REPRO_WIRE_DTYPE", None)
+        if wire is not None:
+            os.environ["REPRO_WIRE_DTYPE"] = wire
+        launches.reset()
+        t0 = time.perf_counter()
+        try:
+            with recording_geometries(torch, kconv, kquant, seen):
+                out = load_example(name).main(["--device", "cuda"])
+        finally:
+            os.environ.pop("REPRO_WIRE_DTYPE", None)
+            if old is not None:
+                os.environ["REPRO_WIRE_DTYPE"] = old
+        torch.cuda.synchronize()
+        counts = launches.snapshot()
+        launched["conv"] += counts["conv2d_dense"] + counts["conv2d_depthwise"]
+        launched["quantize"] += counts["quantize"]
+        launched["dequantize"] += counts["dequantize"]
+        row = dict(seconds=time.perf_counter() - t0, launches=counts)
+        if name == "torch_quickstart":
+            split, full = out["split_logits"], out["full_logits"]
+            row.update(wire=out["wire"], sent=out["sent"],
+                       max_abs_dlogit=float((split - full).abs().max()))
+            if wire is None:
+                check(torch.equal(split, full), "phase 13a quickstart: split "
+                      "logits differ from the monolithic ones")
+            else:
+                check(out["wire"] == "int8" and torch.equal(
+                    split.argmax(-1), full.argmax(-1)),
+                      f"phase 13a quickstart {wire}: top-1 differs")
+                check(counts["quantize"] > 0 and counts["dequantize"] > 0,
+                      f"phase 13a quickstart int8: codec launches {counts}")
+        if name != "torch_train_small":
+            check(counts["conv2d_dense"] > 0,
+                  f"phase 13a {label}: no conv launch ({counts})")
+        runs[label] = row
+    check(seen["calls"] == launched, f"phase 13a: {seen['calls']} launches "
+          f"recorded with their geometry, {launched} counted")
+    unchecked = {kind: sorted(seen[kind] - (conv_checked if kind == "conv"
+                                            else codec_checked), key=str)
+                 for kind in kinds}
+    check(not any(unchecked.values()), f"phase 13a: geometries launched "
+          f"that phases 3-4 did not hold against the plain version: "
+          f"{unchecked}")
+    check(seen["conv"] and seen["quantize"] and seen["dequantize"],
+          f"phase 13a: no geometry recorded ({seen})")
+    runs["geometries"] = {kind: len(seen[kind]) for kind in kinds}
+    print("phase 13a: examples on the card (launches): " + "; ".join(
+        f"{k} {v['seconds']:.1f} s " + json.dumps(
+            {n: c for n, c in v["launches"].items() if c})
+        for k, v in runs.items() if k != "geometries") + "; every "
+          f"geometry launched ({runs['geometries']}) was held against the "
+          f"plain version in phases 3-4")
+    return runs
+
+
+def phase_dryrun(torch, configs, dryrun, mesh_lib, roofline, train_row,
+                 decode_row) -> dict:
+    """Phase 13b: ``dryrun.lower_cell`` (meta tensors, no card) for
+    Qwen3-4B at full width and depth, fp32, on a one-device mesh: phase
+    11's train cell (batch 8 x 128) and phase 10's decode shape (batch 4,
+    a 128-slot cache).  Each record's flops must equal ``matmul_flops``'s
+    count by hand, and its extrapolation the real depth's count.  Prints
+    the train flops beside ``train_arithmetic``'s estimate and each
+    roofline bound beside the step time phases 11 and 10 measured on the
+    card: a train step, and a decode step alone (the bound has no
+    prefill; phase 10's served pass, a prefill and 7 decode steps a
+    batch, is printed beside it, not held to it)."""
+    from repro_torch.configs.base import InputShape
+    cfg = configs.all_configs()["qwen3-4b"]
+    mesh = mesh_lib.make_debug_mesh((1,), ("data",), device="meta")
+    cells = {"train": (InputShape("phase11_train", train_row["seq_len"],
+                                  train_row["batch"], "train"),
+                       train_row["step_ms"]),
+             "decode": (InputShape("phase10_decode", 128, 4, "decode"),
+                        decode_row["decode_step_ms"])}
+    out = {}
+    for mode, (shape, measured_ms) in cells.items():
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(cfg, shape, mesh, "one-card",
+                                dtype=torch.float32)
+        roof = roofline.from_record(rec)
+        bound_ms = 1e3 * roof.bound_s
+        out[mode] = dict(record=rec, bound_ms=bound_ms,
+                         compute_ms=1e3 * roof.compute_s,
+                         memory_ms=1e3 * roof.memory_s,
+                         dominant=roof.dominant, measured_ms=measured_ms,
+                         bound_over_measured=bound_ms / measured_ms,
+                         seconds=time.perf_counter() - t0)
+        check(rec["cost_extrapolated"] == rec["cost"],
+              f"phase 13b {mode}: extrapolated cost "
+              f"{rec['cost_extrapolated']} is not the real depth's "
+              f"{rec['cost']}")
+        want = matmul_flops(cfg, shape.global_batch, shape.seq_len, mode)
+        check(rec["cost"]["flops"] == want, f"phase 13b {mode}: the "
+              f"record's {rec['cost']['flops']} flops are not the "
+              f"{want} counted by hand")
+    arith = train_arithmetic(cfg, train_row["params"],
+                             train_row["batch"] * train_row["seq_len"])
+    t = out["train"]
+    t["flops_over_train_arithmetic"] = \
+        t["record"]["cost"]["flops"] / arith["flops"]
+    print(f"phase 13b: dry-run of qwen3-4b full width and depth, fp32, one "
+          f"card ({card_line()}): train {shape_line(t)}; record flops "
+          f"{t['record']['cost']['flops']:.4g} against train_arithmetic's "
+          f"{arith['flops']:.4g} (ratio {t['flops_over_train_arithmetic']:.4f}"
+          f", equal to matmul_flops's); decode step {shape_line(out['decode'])}"
+          f"; a served pass (prefill + 7 decode steps a batch) "
+          f"{decode_row['ms_per_pass']:.2f} ms (decode-step bound / pass "
+          f"{out['decode']['bound_ms'] / decode_row['ms_per_pass']:.3f})")
+    out["decode"]["ms_per_served_pass"] = decode_row["ms_per_pass"]
+    return out
+
+
+def shape_line(row) -> str:
+    return (f"bound {row['bound_ms']:.2f} ms ({row['dominant']}: compute "
+            f"{row['compute_ms']:.2f}, memory {row['memory_ms']:.2f}) against "
+            f"{row['measured_ms']:.2f} ms measured (bound / measured "
+            f"{row['bound_over_measured']:.3f}), args "
+            f"{row['record']['memory']['argument_size_in_bytes'] / 2**30:.2f}"
+            f" GiB, counted in {row['seconds']:.1f} s")
+
+
 def phase_build(_build):
     """Phase 2: build every source at once; check what nvcc made of the
     tensor-core kernels.  Returns the logs and the per-kernel reports."""
@@ -1879,11 +2185,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False: this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        print(f"chip_smoke: no src/repro_torch beside {__file__}: run it "
-              f"from a checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, SRC)
     import torch.nn.functional as F
 
     from repro_torch import configs, core, runtime
@@ -1900,6 +2201,8 @@ def main() -> int:
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import partition
     from repro_torch.launch import smartsplit_exec
+    from repro_torch.launch import dryrun
+    from repro_torch.analysis import roofline
     from repro_torch.serving.engine import Engine
     from repro_torch.training import checkpoint, optimizer, train_loop
 
@@ -1915,10 +2218,14 @@ def main() -> int:
     regs = [ln.strip() for text in logs.values() for ln in text.splitlines()
             if "registers" in ln or "spill" in ln]
 
-    worst, conv_rows = phase_conv(torch, F, cnn, kconv, ref, dev)
+    worst, conv_rows, conv_checked = phase_conv(torch, F, cnn, kconv, ref,
+                                                dev)
     micro, batch4, extra = codec_shapes(cnn, core, profiles)
-    codec_worst, codec_plans = phase_codec(
-        torch, kquant, ref, micro + batch4 + extra + SPLIT_CODEC_SHAPES, dev)
+    shapes = micro + batch4 + extra + SPLIT_CODEC_SHAPES
+    quickstart = quickstart_boundary(cnn, core, profiles)
+    codec_worst, codec_plans, codec_checked = phase_codec(
+        torch, kquant, ref, shapes + [quickstart] * (quickstart not in shapes),
+        dev)
     worst.update(codec_worst)
     counts, runs = phase_main(torch, cnn, serve, launches, kquant, runtime,
                               dev)
@@ -1966,6 +2273,12 @@ def main() -> int:
                              partition, optimizer, checkpoint, SyntheticLM,
                              launches, dev)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    example_runs = phase_examples(torch, launches, kconv, kquant,
+                                  conv_checked, codec_checked)
+    dryrun_runs = phase_dryrun(torch, configs, dryrun, mesh_lib, roofline,
+                               train_runs["full"], decode_runs[0])
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -2000,7 +2313,8 @@ def main() -> int:
                   mixer_checks=mixer_rows, runs=runs, timings=time_rows,
                   stream_runs=stream_runs, decode_runs=decode_runs,
                   split_runs=split_runs,
-                  train_runs=train_runs,
+                  train_runs=train_runs, example_runs=example_runs,
+                  dryrun_runs=dryrun_runs,
                   kernels=kernels, ptxas=regs,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")

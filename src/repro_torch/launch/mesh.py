@@ -97,13 +97,19 @@ def make_debug_mesh(shape: Sequence[int] = (2, 2, 2),
     return make_mesh(shape, axes, [device] * math.prod(shape))
 
 
+# (shape, axis names) of the production meshes, single pod and multi-pod
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """Single pod: (16, 16) = 256 cards, axes (data, model).
     Multi-pod:   (2, 16, 16) = 512 cards, axes (pod, data, model).
     Each position takes a card of its own; raises where the host has
-    fewer cards than positions."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    fewer cards than positions.  The dry-run's production mesh, which
+    needs no card, is ``make_debug_mesh(*PRODUCTION_MESHES[multi_pod],
+    device="meta")``."""
+    shape, axes = PRODUCTION_MESHES[multi_pod]
     n = math.prod(shape)
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have < n:

@@ -30,16 +30,30 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 
 
-def _normal(g: torch.Generator, shape, dtype, scale: float) -> torch.Tensor:
-    """N(0, 1) * scale in ``dtype``, drawn in fp32 on the generator's
-    device and scaled in place (no second full-size buffer)."""
-    t = torch.randn(shape, generator=g, device=g.device,
+def _normal(g: torch.Generator, shape, dtype, scale: float,
+            device=None) -> torch.Tensor:
+    """N(0, 1) * scale in ``dtype``, drawn in fp32 on ``device`` (default
+    the generator's) and scaled in place (no second full-size buffer).
+    On ``device="meta"`` a CPU generator gives shapes and dtypes only:
+    nothing is drawn or allocated."""
+    t = torch.randn(shape, generator=g, device=device or g.device,
                     dtype=torch.float32).mul_(scale)
     return t if dtype == torch.float32 else t.to(dtype)
 
 
-def _full(g: torch.Generator, shape, value: float, dtype) -> torch.Tensor:
-    return torch.full(shape, value, dtype=dtype, device=g.device)
+def _full(g: torch.Generator, shape, value: float, dtype,
+          device=None) -> torch.Tensor:
+    return torch.full(shape, value, dtype=dtype, device=device or g.device)
+
+
+def count_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in [0, n): an int64
+    count of each id, as a scatter-add of ones into n zeros, whose shape
+    is known before the values are (``bincount``'s is not, so it has no
+    meta kernel and the dry-run could not trace it)."""
+    flat = ids.reshape(-1).long()
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add(
+        0, flat, torch.ones_like(flat))
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -101,19 +115,21 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def init_attn_params(cfg: ModelConfig, g: torch.Generator,
-                     dtype=torch.bfloat16, n: tuple = ()):
-    """``n`` prefixes every shape: ``(L,)`` stacks L layers' weights."""
+                     dtype=torch.bfloat16, n: tuple = (), device=None):
+    """``n`` prefixes every shape: ``(L,)`` stacks L layers' weights;
+    ``device`` (default the generator's) holds them."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     s = 1.0 / math.sqrt(d)
     p = {
-        "wq": _normal(g, n + (d, h * hd), dtype, s),
-        "wk": _normal(g, n + (d, kv * hd), dtype, s),
-        "wv": _normal(g, n + (d, kv * hd), dtype, s),
-        "wo": _normal(g, n + (h * hd, d), dtype, s / cfg.num_layers),
+        "wq": _normal(g, n + (d, h * hd), dtype, s, device=device),
+        "wk": _normal(g, n + (d, kv * hd), dtype, s, device=device),
+        "wv": _normal(g, n + (d, kv * hd), dtype, s, device=device),
+        "wo": _normal(g, n + (h * hd, d), dtype, s / cfg.num_layers,
+                      device=device),
     }
     if cfg.qk_norm:
-        p["q_norm"] = _full(g, n + (hd,), 1.0, dtype)
-        p["k_norm"] = _full(g, n + (hd,), 1.0, dtype)
+        p["q_norm"] = _full(g, n + (hd,), 1.0, dtype, device=device)
+        p["k_norm"] = _full(g, n + (hd,), 1.0, dtype, device=device)
     return p
 
 
@@ -141,12 +157,12 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, *,
     if cache is not None:
         M = cache.k.shape[1]
         slots = (positions[0] % M).long()  # (S,) same layout for all rows
-        ck = cache.k.clone()
-        cv = cache.v.clone()
-        spos = cache.slot_pos.clone()
-        ck[:, slots] = k.to(ck.dtype)
-        cv[:, slots] = v.to(cv.dtype)
-        spos[slots] = positions[0].to(spos.dtype)
+        # out of place: a sharded cache (the dry-run's DTensors) keeps
+        # its placement, which an in-place write may not change
+        ck = cache.k.index_copy(1, slots, k.to(cache.k.dtype))
+        cv = cache.v.index_copy(1, slots, v.to(cache.v.dtype))
+        spos = cache.slot_pos.index_copy(
+            0, slots, positions[0].to(cache.slot_pos.dtype))
         keys, vals = ck, cv
         key_pos = spos[None, :]                          # (1, M)
         cache = KVCache(ck, cv, spos)
@@ -176,12 +192,13 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, *,
 # Dense SwiGLU MLP
 # ---------------------------------------------------------------------------
 def init_mlp_params(d: int, ff: int, g: torch.Generator,
-                    dtype=torch.bfloat16, n_layers=32, n: tuple = ()):
+                    dtype=torch.bfloat16, n_layers=32, n: tuple = (),
+                    device=None):
     s = 1.0 / math.sqrt(d)
-    return {"wg": _normal(g, n + (d, ff), dtype, s),
-            "wu": _normal(g, n + (d, ff), dtype, s),
+    return {"wg": _normal(g, n + (d, ff), dtype, s, device=device),
+            "wu": _normal(g, n + (d, ff), dtype, s, device=device),
             "wd": _normal(g, n + (ff, d), dtype,
-                          1.0 / math.sqrt(ff) / n_layers)}
+                          1.0 / math.sqrt(ff) / n_layers, device=device)}
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
@@ -192,15 +209,16 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
 # Mixture of Experts: sort-based capacity dispatch
 # ---------------------------------------------------------------------------
 def init_moe_params(cfg: ModelConfig, g: torch.Generator,
-                    dtype=torch.bfloat16, n: tuple = ()):
+                    dtype=torch.bfloat16, n: tuple = (), device=None):
     d, e, ff = cfg.d_model, cfg.num_experts, cfg.e_ff
     s = 1.0 / math.sqrt(d)
     return {
-        "router": _normal(g, n + (d, e), torch.float32, s),
-        "wg": _normal(g, n + (e, d, ff), dtype, s),
-        "wu": _normal(g, n + (e, d, ff), dtype, s),
+        "router": _normal(g, n + (d, e), torch.float32, s,
+                          device=device),
+        "wg": _normal(g, n + (e, d, ff), dtype, s, device=device),
+        "wu": _normal(g, n + (e, d, ff), dtype, s, device=device),
         "wd": _normal(g, n + (e, ff, d), dtype,
-                      1.0 / math.sqrt(ff) / cfg.num_layers),
+                      1.0 / math.sqrt(ff) / cfg.num_layers, device=device),
     }
 
 
@@ -250,7 +268,7 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor):
     order = torch.sort(flat_e, stable=True).indices
     se, st = flat_e[order], flat_t[order]
     # rank of each entry within its expert group
-    counts = torch.bincount(se, minlength=E)                   # (E,)
+    counts = count_ids(se, E)                                  # (E,)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * K, device=dev) - starts[se]
     keep = rank < C
@@ -258,9 +276,8 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor):
     slot = torch.where(keep, se * C + rank, torch.full_like(se, E * C))
 
     # slot table: token index per (E*C) slot (+1 trash, cut off)
-    slot_tok = torch.zeros(E * C + 1, dtype=torch.long, device=dev)
-    slot_tok.index_put_((slot,), st)
-    slot_tok = slot_tok[:-1]
+    slot_tok = torch.zeros(E * C + 1, dtype=torch.long,
+                           device=dev).index_put((slot,), st)[:-1]
 
     xe = xt[slot_tok].reshape(E, C, d)                         # gather
     h = silu(torch.einsum("ecd,edf->ecf", xe, p["wg"])) \
@@ -278,7 +295,7 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor):
 
     # Switch-style load-balance aux loss.
     me = probs.mean(dim=0)                                     # (E,)
-    ce = torch.bincount(eidx.reshape(-1), minlength=E) / (T * K)
+    ce = count_ids(eidx, E) / (T * K)
     aux = E * torch.sum(me * ce)
     return y.reshape(B, S, d), aux
 
@@ -295,21 +312,26 @@ CONV_K = 4
 
 
 def init_mamba_params(cfg: ModelConfig, g: torch.Generator,
-                      dtype=torch.bfloat16, n: tuple = ()):
+                      dtype=torch.bfloat16, n: tuple = (), device=None):
     d = cfg.d_model
     inner = cfg.ssm_expand * d
     nh, ds, G = cfg.n_mamba_heads, cfg.ssm_state, cfg.ssm_groups
     s = 1.0 / math.sqrt(d)
     proj_out = 2 * inner + 2 * G * ds + nh
     return {
-        "in_proj": _normal(g, n + (d, proj_out), dtype, s),
-        "conv_w": _normal(g, n + (CONV_K, inner), dtype, 0.5),
-        "A_log": _full(g, n + (nh,), 0.0, torch.float32),
-        "D": _full(g, n + (nh,), 1.0, torch.float32),
-        "dt_bias": _full(g, n + (nh,), 0.0, torch.float32),
+        "in_proj": _normal(g, n + (d, proj_out), dtype, s,
+                           device=device),
+        "conv_w": _normal(g, n + (CONV_K, inner), dtype, 0.5,
+                          device=device),
+        "A_log": _full(g, n + (nh,), 0.0, torch.float32, device=device),
+        "D": _full(g, n + (nh,), 1.0, torch.float32, device=device),
+        "dt_bias": _full(g, n + (nh,), 0.0, torch.float32,
+                         device=device),
         "out_proj": _normal(g, n + (inner, d), dtype,
-                            1.0 / math.sqrt(inner) / cfg.num_layers),
-        "gate_norm": _full(g, n + (inner,), 1.0, dtype),
+                            1.0 / math.sqrt(inner) / cfg.num_layers,
+                            device=device),
+        "gate_norm": _full(g, n + (inner,), 1.0, dtype,
+                           device=device),
     }
 
 
@@ -441,25 +463,29 @@ RWKV_HD = 64
 
 
 def init_rwkv_params(cfg: ModelConfig, g: torch.Generator,
-                     dtype=torch.bfloat16, n: tuple = ()):
+                     dtype=torch.bfloat16, n: tuple = (), device=None):
     d, ff = cfg.d_model, cfg.d_ff
     s = 1.0 / math.sqrt(d)
     return {
-        "mu": _full(g, n + (5, d), 0.5, dtype),  # r,k,v,w,g token-shift mix
-        "wr": _normal(g, n + (d, d), dtype, s),
-        "wk": _normal(g, n + (d, d), dtype, s),
-        "wv": _normal(g, n + (d, d), dtype, s),
-        "ww": _normal(g, n + (d, d), dtype, 0.1 * s),
-        "w_bias": _full(g, n + (d,), -6.0, torch.float32),
-        "wg": _normal(g, n + (d, d), dtype, s),
-        "u": _full(g, n + (d,), 0.0, torch.float32),  # current-token bonus
-        "wo": _normal(g, n + (d, d), dtype, s / cfg.num_layers),
-        "ln_x": _full(g, n + (d,), 1.0, dtype),
-        "mu_cm": _full(g, n + (2, d), 0.5, dtype),
-        "ck": _normal(g, n + (d, ff), dtype, s),
+        # r, k, v, w, g token-shift mix
+        "mu": _full(g, n + (5, d), 0.5, dtype, device=device),
+        "wr": _normal(g, n + (d, d), dtype, s, device=device),
+        "wk": _normal(g, n + (d, d), dtype, s, device=device),
+        "wv": _normal(g, n + (d, d), dtype, s, device=device),
+        "ww": _normal(g, n + (d, d), dtype, 0.1 * s, device=device),
+        "w_bias": _full(g, n + (d,), -6.0, torch.float32,
+                        device=device),
+        "wg": _normal(g, n + (d, d), dtype, s, device=device),
+        # current-token bonus
+        "u": _full(g, n + (d,), 0.0, torch.float32, device=device),
+        "wo": _normal(g, n + (d, d), dtype, s / cfg.num_layers,
+                      device=device),
+        "ln_x": _full(g, n + (d,), 1.0, dtype, device=device),
+        "mu_cm": _full(g, n + (2, d), 0.5, dtype, device=device),
+        "ck": _normal(g, n + (d, ff), dtype, s, device=device),
         "cv": _normal(g, n + (ff, d), dtype,
-                      1.0 / math.sqrt(ff) / cfg.num_layers),
-        "cr": _normal(g, n + (d, d), dtype, s),
+                      1.0 / math.sqrt(ff) / cfg.num_layers, device=device),
+        "cr": _normal(g, n + (d, d), dtype, s, device=device),
     }
 
 

@@ -91,7 +91,7 @@ def _route(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor,
     order = torch.sort(dest, stable=True).indices
     s_dest, s_e, s_t = dest[order], flat_e[order], flat_t[order]
     Cs = _send_capacity(cfg, T, n_shards)
-    counts = torch.bincount(s_dest, minlength=n_shards)
+    counts = L.count_ids(s_dest, n_shards)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * K, device=dev) - starts[s_dest]
     slot = torch.where(rank < Cs, s_dest * Cs + rank,
@@ -110,7 +110,7 @@ def _route(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor,
 
     # router load-balance aux (this shard's estimate)
     me = probs.mean(dim=0)
-    ce = torch.bincount(eidx.reshape(-1), minlength=E) / (T * K)
+    ce = L.count_ids(eidx, E) / (T * K)
     aux = E * torch.sum(me * ce)
     return send_x, send_e, pair_slot.reshape(T, K), gate, aux
 
@@ -131,7 +131,7 @@ def _experts(recv_x: torch.Tensor, recv_e: torch.Tensor, wg, wu, wd):
     Cl = max(8, -(-R // E_loc // 8) * 8)
     order2 = torch.sort(key, stable=True).indices
     r_e = re[order2]
-    counts2 = torch.bincount(key[order2], minlength=E_loc + 1)[:E_loc]
+    counts2 = L.count_ids(key[order2], E_loc + 1)[:E_loc]
     starts2 = torch.cumsum(counts2, 0) - counts2
     r_c = r_e.clamp(0, E_loc - 1)
     rank2 = torch.arange(R, device=dev) - starts2[r_c]

@@ -45,26 +45,28 @@ from repro_torch.tree import leaves, tree_map
 # Init
 # ---------------------------------------------------------------------------
 def _init_block(cfg: ModelConfig, kind: str, g: torch.Generator, dtype,
-                n: tuple = ()):
+                n: tuple, dev: torch.device):
     d = cfg.d_model
 
     def ones():
-        return torch.ones(n + (d,), dtype=dtype, device=g.device)
+        return torch.ones(n + (d,), dtype=dtype, device=dev)
     if kind in ("attn_mlp", "enc_attn"):
         return {"ln1": ones(),
-                "attn": L.init_attn_params(cfg, g, dtype, n),
+                "attn": L.init_attn_params(cfg, g, dtype, n, dev),
                 "ln2": ones(),
                 "mlp": L.init_mlp_params(d, cfg.d_ff, g, dtype,
-                                         cfg.num_layers, n)}
+                                         cfg.num_layers, n, dev)}
     if kind == "attn_moe":
         return {"ln1": ones(),
-                "attn": L.init_attn_params(cfg, g, dtype, n),
+                "attn": L.init_attn_params(cfg, g, dtype, n, dev),
                 "ln2": ones(),
-                "moe": L.init_moe_params(cfg, g, dtype, n)}
+                "moe": L.init_moe_params(cfg, g, dtype, n, dev)}
     if kind == "mamba":
-        return {"ln1": ones(), "mamba": L.init_mamba_params(cfg, g, dtype, n)}
+        return {"ln1": ones(),
+                "mamba": L.init_mamba_params(cfg, g, dtype, n, dev)}
     if kind == "rwkv":
-        return {"ln1": ones(), "rwkv": L.init_rwkv_params(cfg, g, dtype, n)}
+        return {"ln1": ones(),
+                "rwkv": L.init_rwkv_params(cfg, g, dtype, n, dev)}
     raise ValueError(kind)
 
 
@@ -80,24 +82,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     ``device`` (default the card; raises without one), in the JAX
     package's shapes and scales, block weights stacked on a leading layer
     axis.  The stream is torch's own: for weights equal to ``repro``'s,
-    carry its ``init_params`` across with ``params_from_numpy``."""
+    carry its ``init_params`` across with ``params_from_numpy``.  On
+    ``device="meta"`` the tree has every shape and dtype and holds no
+    memory (the dry-run's parameters, at any size)."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev)
+    # meta has no generator of its own: a CPU one stands in, and draws
+    # nothing on meta
+    g = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     g.manual_seed(seed)
     d, V = cfg.d_model, cfg.padded_vocab
     params: dict[str, Any] = {
-        "embed": L._normal(g, (V, d), dtype, 0.02),
+        "embed": L._normal(g, (V, d), dtype, 0.02, dev),
         "final_norm": torch.ones((d,), dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = L._normal(g, (d, V), dtype, 1.0 / d ** 0.5)
+        params["unembed"] = L._normal(g, (d, V), dtype, 1.0 / d ** 0.5, dev)
     if cfg.pattern == "mamba" and cfg.attn_every:
         _, n_slots = _zamba_segments(cfg)
-        params["blocks"] = _init_block(cfg, "mamba", g, dtype, (n_slots,))
-        params["shared"] = _init_block(cfg, "attn_mlp", g, dtype)
+        params["blocks"] = _init_block(cfg, "mamba", g, dtype, (n_slots,),
+                                       dev)
+        params["shared"] = _init_block(cfg, "attn_mlp", g, dtype, (), dev)
     else:
         params["blocks"] = _init_block(cfg, cfg.pattern, g, dtype,
-                                       (cfg.num_layers,))
+                                       (cfg.num_layers,), dev)
     return params
 
 

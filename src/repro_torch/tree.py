@@ -4,18 +4,21 @@ included), the port's counterpart of ``jax.tree``'s ``map`` and
 from __future__ import annotations
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
     """``fn`` applied to every leaf (anything not a dict, list or tuple),
-    the containers rebuilt as they were."""
+    the containers rebuilt as they were; with ``rest``, trees of the same
+    structure, ``fn(leaf, *their leaves)`` as ``jax.tree.map`` does."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    if isinstance(tree, tuple):
-        vals = [tree_map(fn, v) for v in tree]
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        vals = [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return vals
         return type(tree)(*vals) if hasattr(tree, "_fields") \
             else tuple(vals)
-    return fn(tree)
+    return fn(tree, *rest)
 
 
 def leaves(tree) -> list:

@@ -1,6 +1,8 @@
-"""The port stands alone: no file under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the ``repro`` package, and without a
-CUDA device its entry points raise unless the caller asks for the CPU."""
+"""The port stands alone: no file under ``src/repro_torch/``, no
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports JAX or the
+``repro`` package -- by an import statement, or by a string given to
+``__import__`` or ``importlib.import_module`` -- and without a CUDA
+device its entry points raise unless the caller asks for the CPU."""
 import ast
 import os
 import shutil
@@ -13,8 +15,24 @@ import pytest
 torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"]
+SRC_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
+PORT_FILES = SRC_FILES + EXAMPLES + [REPO / "chip_smoke.py"]
+
+
+def _dynamic(node) -> str | None:
+    """The module a call ``__import__("m")`` / ``importlib.import_module(
+    "m")`` names by a string constant, else None."""
+    if not isinstance(node, ast.Call) or not node.args:
+        return None
+    f = node.func
+    name = f.id if isinstance(f, ast.Name) else \
+        f.attr if isinstance(f, ast.Attribute) else None
+    arg = node.args[0]
+    if name in ("__import__", "import_module") \
+            and isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+        return arg.value
+    return None
 
 
 def _imports(path: Path) -> list[str]:
@@ -24,6 +42,8 @@ def _imports(path: Path) -> list[str]:
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module or "")
+        elif _dynamic(node) is not None:
+            names.append(_dynamic(node))
     return names
 
 
@@ -40,7 +60,7 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def test_the_walk_covers_every_module_of_the_port():
-    names = {str(p.relative_to(REPO / "src")) for p in PORT_FILES[:-1]}
+    names = {str(p.relative_to(REPO / "src")) for p in SRC_FILES}
     for module in ("configs/__init__.py", "configs/base.py",
                    "configs/qwen3_4b.py", "configs/rwkv6_7b.py",
                    "configs/zamba2_7b.py", "kernels/ops.py",
@@ -48,8 +68,26 @@ def test_the_walk_covers_every_module_of_the_port():
                    "kernels/mamba2_ssd.py", "data/pipeline.py",
                    "training/optimizer.py", "training/checkpoint.py",
                    "training/train_loop.py", "launch/train.py",
-                   "launch/partition.py", "tree.py"):
+                   "launch/partition.py", "launch/dryrun.py",
+                   "analysis/hlo.py", "analysis/roofline.py",
+                   "core/knobs.py", "tree.py"):
         assert f"repro_torch/{module}" in names
+    assert [p.name for p in EXAMPLES] == [
+        "torch_batch_serving.py", "torch_quickstart.py",
+        "torch_split_serving.py", "torch_train_small.py"]
+
+
+@pytest.mark.parametrize("code, found", [
+    ('__import__("repro.models.transformer", fromlist=["x"])', True),
+    ('importlib.import_module("jax.numpy")', True),
+    ('import_module("repro")', True),
+    ('__import__("repro_torch.models")', False),
+    ('importlib.import_module(name)', False),
+])
+def test_the_walk_sees_dynamic_imports(tmp_path, code, found):
+    path = tmp_path / "m.py"
+    path.write_text(f"import importlib\n{code}\n")
+    assert any(_forbidden(n) for n in _imports(path)) == found
 
 
 def test_every_kernel_source_is_in_the_package():

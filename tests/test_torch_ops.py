@@ -439,7 +439,8 @@ def test_flash_three_tf32_passes_hold_1e4_at_every_head_dim(hd):
 
 def _load_chip_smoke():
     """``chip_smoke.py`` as a module (it imports only the standard library
-    at load), for phase 8's cases and its input recipe."""
+    and the port's roofline constants at load), for phase 8's cases and
+    its input recipe."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     module = importlib.util.module_from_spec(spec)
