@@ -150,7 +150,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    real depth's, and each roofline bound (``analysis.roofline``, the
    H100's data-sheet rates) is printed beside the step time phase 11
    measured and phase 10's decode step alone, and the train flops beside
-   ``train_arithmetic``'s.
+   ``train_arithmetic``'s; (c) the dry-run's memory counter
+   (``analysis.hlo.LiveBytes``, a one-device mesh, fp32) against the
+   card's allocator: Qwen3-4B's train cell, arguments + output + temp -
+   alias, against phase 11's peak less what earlier phases held, and
+   one ``make_decode_step`` at full size (batch 4, a 128-slot cache),
+   output + temp - alias, against ``max_memory_allocated`` less
+   ``memory_allocated`` before the step (after one untimed step); each
+   within ``MEMORY_BAND`` (5% + 256 MiB: cuBLAS's workspace and the
+   allocator's rounding).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without ``src/repro_torch`` beside it, the script exits
@@ -178,6 +186,9 @@ except ImportError:
              f"from a checkout of the repository")
 PEAK_FLOPS = H100_PEAK_FLOPS
 PEAK_BYTES = H100_HBM_BW
+# phase 13c: |measured - predicted| may be this share of the prediction
+# plus this many bytes (cuBLAS's workspace, the allocator's rounding)
+MEMORY_BAND = (0.05, 256 * 2**20)
 # The rate of the arithmetic the dense conv kernel runs: fp32 storage as
 # three TF32 tensor-core passes (495 TFLOP/s each), bf16 as one bf16 pass.
 CONV_PEAK = {"fp32": 495e12 / 3, "bf16": 989e12}
@@ -2122,6 +2133,74 @@ def phase_dryrun(torch, configs, dryrun, mesh_lib, roofline, train_row,
     return out
 
 
+def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, train_row,
+                 dev) -> dict:
+    """Phase 13c: the dry-run's memory sizes (one-device mesh, fp32)
+    against the card's allocator, each within ``MEMORY_BAND``: (i) phase
+    11's Qwen3-4B train cell, the whole step (arguments + output + temp -
+    alias) against phase 11's peak less what earlier phases held; (ii)
+    one ``make_decode_step`` of Qwen3-4B at full size, batch 4, a
+    128-slot cache, the step's own bytes (output + temp - alias) against
+    ``max_memory_allocated`` less ``memory_allocated`` before it, after
+    one untimed step on the same arguments."""
+    from repro_torch.configs.base import InputShape
+    cfg = configs.all_configs()["qwen3-4b"]
+    mesh = mesh_lib.make_debug_mesh((1,), ("data",), device="meta")
+    rows = {}
+
+    def held_to(name, mem, measured, whole):
+        predicted = mem["output_size_in_bytes"] \
+            + mem["temp_size_in_bytes"] - mem["alias_size_in_bytes"] \
+            + (mem["argument_size_in_bytes"] if whole else 0)
+        band = MEMORY_BAND[0] * predicted + MEMORY_BAND[1]
+        rows[name] = dict(memory=mem, predicted_bytes=predicted,
+                          measured_bytes=measured, band_bytes=band,
+                          measured_over_predicted=measured / predicted)
+        check(abs(measured - predicted) <= band, f"phase 13c {name}: the "
+              f"card allocated {measured} B where the dry-run's counter "
+              f"predicts {predicted} B (band {band:.0f} B)")
+
+    shape = InputShape("phase11_train", train_row["seq_len"],
+                       train_row["batch"], "train")
+    rec = dryrun.lower_cell(cfg, shape, mesh, "one-card",
+                            dtype=torch.float32)
+    held_to("train", rec["memory"],
+            train_row["peak_bytes"] - train_row["held_bytes"], True)
+
+    shape = InputShape("phase10_decode", 128, 4, "decode")
+    rec = dryrun.lower_cell(cfg, shape, mesh, "one-card",
+                            dtype=torch.float32)
+    params = T.init_params(cfg, 0, torch.float32, dev)
+    cache = T.init_cache(cfg, shape.global_batch, shape.seq_len,
+                         torch.float32, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
+                           generator=torch.Generator().manual_seed(13))
+    tokens = tokens.to(device=dev, dtype=torch.int32)
+    step = partition.make_decode_step(cfg)
+    out = step(params, tokens, cache)           # untimed: the same shapes
+    del out
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    out = step(params, tokens, cache)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(bool(torch.isfinite(out[0]).all()), "phase 13c decode: "
+          "non-finite logits")
+    held_to("decode", rec["memory"], peak - before, False)
+    del out, params, cache
+    torch.cuda.empty_cache()
+    print(f"phase 13c: the dry-run's memory counter against the card "
+          f"({card_line()}): " + "; ".join(
+              f"{k} predicted {r['predicted_bytes'] / 2**30:.3f} GiB, "
+              f"measured {r['measured_bytes'] / 2**30:.3f} GiB "
+              f"(measured / predicted {r['measured_over_predicted']:.4f}, "
+              f"band +-{r['band_bytes'] / 2**30:.3f} GiB)"
+              for k, r in rows.items()))
+    return rows
+
+
 def shape_line(row) -> str:
     return (f"bound {row['bound_ms']:.2f} ms ({row['dominant']}: compute "
             f"{row['compute_ms']:.2f}, memory {row['memory_ms']:.2f}) against "
@@ -2278,6 +2357,8 @@ def main() -> int:
                                   conv_checked, codec_checked)
     dryrun_runs = phase_dryrun(torch, configs, dryrun, mesh_lib, roofline,
                                train_runs["full"], decode_runs[0])
+    memory_runs = phase_memory(torch, configs, transformer, partition,
+                               dryrun, mesh_lib, train_runs["full"], dev)
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -2314,7 +2395,7 @@ def main() -> int:
                   stream_runs=stream_runs, decode_runs=decode_runs,
                   split_runs=split_runs,
                   train_runs=train_runs, example_runs=example_runs,
-                  dryrun_runs=dryrun_runs,
+                  dryrun_runs=dryrun_runs, memory_runs=memory_runs,
                   kernels=kernels, ptxas=regs,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -3,7 +3,7 @@ of ``repro.analysis.hlo``.
 
 The port has no HLO: nothing is compiled, so nothing is parsed.  Its
 step functions run eagerly on meta tensors (shapes and dtypes, no data),
-and three counters watch the aten operations they dispatch:
+and four counters watch the aten operations they dispatch:
 
 * ``count_cost`` -- flops and bytes of one call on plain meta tensors of
   the GLOBAL shapes:
@@ -27,13 +27,27 @@ and three counters watch the aten operations they dispatch:
   so no data moves), bucketed by ``COLLECTIVE_OPS``: counts, and the
   bytes of each collective's result on one device (the per-device
   payload, as ``collective_bytes`` of the JAX package sums the result
-  shapes).  They are what DTensor's sharding propagation issues, which
-  need not be what XLA's partitioner would; ``collective-permute`` has
-  no DTensor counterpart and stays 0.
+  shapes).  They are what the step issues: the explicit moves of
+  ``models/sharded.py``'s per-rank bodies and DTensor's own
+  redistributions elsewhere; ``collective-permute`` has no counterpart
+  and stays 0.  DTensor's CPU mesh has no all-to-all: it moves a
+  Shard(i) -> Shard(j) redistribution as an all-gather and a local
+  chunk.  The pass routes that move through DTensor's own all-to-all op
+  (``_dtensor.shard_dim_alltoall``, whose meta kernel gives the local
+  result), so it counts as one all-to-all of the local result's bytes,
+  which is what XLA emits.
+* ``LiveBytes`` -- the step's own memory: every storage an operation
+  creates, followed until it is freed (the plain meta pass, or the local
+  tensors of the DTensor pass).  ``temp`` is the peak of those bytes
+  less the step's new outputs (XLA's ``temp_size_in_bytes`` holds no
+  output buffer), ``output`` the bytes the step returns and ``alias``
+  those of them that share storage with an argument.
 """
 from __future__ import annotations
 
-from collections import defaultdict
+import contextlib
+import weakref
+from collections import Counter, defaultdict
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -51,6 +65,8 @@ _KINDS = {
     "all_to_all_single": "all-to-all",
     "shard_dim_alltoall": "all-to-all",
 }
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                          "_dtensor")
 
 
 def _nbytes(tree) -> int:
@@ -89,29 +105,107 @@ class _Bytes(TorchDispatchMode):
         return out
 
 
-def count_cost(fn, *args) -> dict:
+def count_cost(fn, *args, memory: bool = False) -> dict:
     """``fn(*args)`` on meta tensors of the global shapes: ``{"flops",
     "bytes accessed", "ops"}`` over the whole call (module docstring for
-    what each includes), and ``"out"``, what ``fn`` returned."""
+    what each includes), ``"out"``, what ``fn`` returned, and with
+    ``memory`` the step's ``LiveBytes.sizes`` as ``"memory"``."""
     from torch.utils.flop_counter import FlopCounterMode
     flops = FlopCounterMode(display=False)
     nbytes = _Bytes()
-    with flops, nbytes:
+    live = LiveBytes(args) if memory else contextlib.nullcontext()
+    with flops, nbytes, live:
         out = fn(*args)
-    return {"flops": float(flops.get_total_flops()),
-            "bytes accessed": float(nbytes.bytes), "ops": nbytes.ops,
-            "out": out}
+    res = {"flops": float(flops.get_total_flops()),
+           "bytes accessed": float(nbytes.bytes), "ops": nbytes.ops,
+           "out": out}
+    if memory:
+        res["memory"] = live.sizes(out)
+    return res
+
+
+def _local(t):
+    """A DTensor's local tensor; a plain tensor itself."""
+    return getattr(t, "_local_tensor", t)
+
+
+def _storages(tree) -> list:
+    flat, _ = tree_flatten(tree)
+    return [_local(t).untyped_storage() for t in flat
+            if isinstance(t, torch.Tensor)]
+
+
+class LiveBytes(TorchDispatchMode):
+    """Follows every storage that a non-view, non-in-place operation
+    creates until it is freed (a ``weakref.finalize`` on the storage,
+    which outlives its tensors while a view holds it): the live bytes
+    and their peak.  The arguments' storages are not the step's own.
+    Below DTensor, it sees the local tensors of one device; the fake
+    tensors of DTensor's shape propagation (global shapes, never
+    allocated) are not counted."""
+
+    def __init__(self, args):
+        super().__init__()
+        self._args = _storages(args)          # held: their ids stay
+        self._arg_ids = {id(s) for s in self._args}
+        self._live: dict[int, int] = {}
+        self.live = 0
+        self.peak = 0
+
+    def _free(self, key: int) -> None:
+        self.live -= self._live.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(t is DTensor for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if isinstance(func, torch._ops.HigherOrderOperator) \
+                or any(r.alias_info is not None
+                       for r in func._schema.returns):
+            return out              # a view, or written in place
+        from torch._subclasses.fake_tensor import is_fake
+        flat, _ = tree_flatten(out)
+        if any(isinstance(t, torch.Tensor) and is_fake(t) for t in flat):
+            return out
+        for s in _storages(out):
+            key = id(s)
+            if key in self._arg_ids or key in self._live:
+                continue
+            self._live[key] = s.nbytes()
+            self.live += s.nbytes()
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(s, self._free, key)
+        return out
+
+    def sizes(self, out) -> dict:
+        """The step's memory sizes, after it returned ``out``."""
+        flat, _ = tree_flatten(out)
+        tensors = [_local(t) for t in flat if isinstance(t, torch.Tensor)]
+        output = sum(t.numel() * t.element_size() for t in tensors)
+        alias = sum(t.numel() * t.element_size() for t in tensors
+                    if id(t.untyped_storage()) in self._arg_ids)
+        seen, new = set(), 0
+        for t in tensors:
+            key = id(t.untyped_storage())
+            if key in self._live and key not in seen:
+                seen.add(key)
+                new += self._live[key]
+        return {"output_size_in_bytes": output,
+                "temp_size_in_bytes": max(self.peak - new, 0),
+                "alias_size_in_bytes": alias}
 
 
 class _Collectives(TorchDispatchMode):
     """Counts the aten collectives below DTensor (it lets DTensor run
     first, as ``CommDebugMode`` does) and sums each one's result bytes
-    on this rank."""
+    on this rank; ``shapes`` counts each (kind, result shape, dtype)."""
 
     def __init__(self):
         super().__init__()
         self.bytes: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
+        self.shapes: Counter = Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -121,20 +215,48 @@ class _Collectives(TorchDispatchMode):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
         kind = _KINDS.get(func._overloadpacket.__name__)
-        if kind is not None and func.namespace in ("_c10d_functional",
-                                                   "_dtensor"):
+        if kind is not None and func.namespace in _COLLECTIVE_NAMESPACES:
             self.bytes[kind] += _nbytes(out)
             self.counts[kind] += 1
+            self.shapes[(kind, tuple(out.shape), str(out.dtype))] += 1
         return out
 
 
-def count_collectives(fn, *args) -> tuple[dict[str, float],
-                                          dict[str, int]]:
-    """``fn(*args)`` on DTensors: (result bytes on one device by kind,
-    with ``"total"``; counts by kind), kinds in ``COLLECTIVE_OPS``."""
+@contextlib.contextmanager
+def alltoall_as_alltoall():
+    """Inside: DTensor moves a Shard(i) -> Shard(j) redistribution on a
+    CPU mesh through its all-to-all op (``_dtensor.shard_dim_alltoall``)
+    and not through its CPU fallback (an all-gather and a chunk).  The
+    fake process group sends nothing, and the op's meta kernel gives the
+    local result.  Restored on exit."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import placement_types
+
+    def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        group = funcol._resolve_group((mesh, mesh_dim))
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, funcol._group_or_group_name(group))
+
+    real = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = shard_dim_alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = real
+
+
+def count_collectives(fn, *args) -> dict:
+    """``fn(*args)`` on DTensors: ``{"coll"}`` result bytes on one device
+    by kind, with ``"total"``, ``{"counts"}`` by kind (kinds in
+    ``COLLECTIVE_OPS``), ``{"shapes"}`` each collective's (kind, result
+    shape, dtype) and its count, and one device's ``LiveBytes.sizes`` as
+    ``{"memory"}``."""
     mode = _Collectives()
-    with mode:
-        fn(*args)
-    out = {k: mode.bytes.get(k, 0.0) for k in COLLECTIVE_OPS}
-    out["total"] = sum(out.values())
-    return out, {k: mode.counts.get(k, 0) for k in COLLECTIVE_OPS}
+    live = LiveBytes(args)
+    with alltoall_as_alltoall(), mode, live:
+        out = fn(*args)
+    coll = {k: mode.bytes.get(k, 0.0) for k in COLLECTIVE_OPS}
+    coll["total"] = sum(coll.values())
+    return {"coll": coll,
+            "counts": {k: mode.counts.get(k, 0) for k in COLLECTIVE_OPS},
+            "shapes": dict(mode.shapes), "memory": live.sizes(out)}

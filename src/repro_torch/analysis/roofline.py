@@ -59,10 +59,10 @@ class Roofline:
 def from_record(rec: dict) -> Roofline:
     """rec: one dry-run JSON record (see launch/dryrun.py).  A record
     whose collectives were not counted has ``collective_s`` None (the
-    bound then leaves them out).  ``bytes_per_device`` is what the record
-    knows a device holds: the arguments' bytes, plus any other size the
-    record has (meta tensors measure none), so ``hbm_budget_ok`` tests a
-    lower bound on residency against the 80 GB."""
+    bound then leaves them out).  ``bytes_per_device`` is the whole
+    step's memory on a device: arguments + output + temp - alias (the
+    counter of ``analysis/hlo.py``), and ``hbm_budget_ok`` tests it
+    against the H100's 80 GB."""
     chips = rec["num_devices"]
     flops_dev = rec["cost"].get("flops", 0.0)
     bytes_dev = rec["cost"].get("bytes accessed", 0.0)

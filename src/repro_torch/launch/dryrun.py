@@ -12,7 +12,9 @@ the records.
 What each key holds (``analysis/hlo.py`` says what each counter counts):
 
 * ``cost`` -- per-device flops and bytes of the real depth: the global
-  eager counts over the number of devices.  Eager PyTorch runs every
+  eager counts over the number of devices (RWKV6's train and prefill:
+  at the two sequence lengths of ``SEQ_POINTS``, taken affinely to the
+  cell's, below).  Eager PyTorch runs every
   layer and every inner trip, so nothing is counted once for a loop as
   XLA counts a while body, and the port needs no extrapolation for its
   cost.  ``cost_scan_raw`` (the JAX package's key for the count before
@@ -25,9 +27,17 @@ What each key holds (``analysis/hlo.py`` says what each counter counts):
   leave 3 padded slots and one shared attention that the port skips and
   the JAX package computes and masks, so the extrapolation counts them).
 * ``memory`` -- ``argument_size_in_bytes``: the per-device bytes of the
-  step's sharded arguments, from their specs.  The other sizes are
-  ``null``: meta tensors have no allocator, so what the step allocates
-  is not measured (``memory_note`` says so).
+  step's sharded arguments, from their specs.  ``temp``, ``output`` and
+  ``alias_size_in_bytes``: the step's own memory on one device, from
+  ``analysis/hlo.py``'s ``LiveBytes`` -- temp the peak of the bytes the
+  step allocates less its new outputs, output the bytes it returns,
+  alias those of them that share storage with an argument (train
+  updates the parameters and moments in place; decode writes its cache
+  out of place, so its alias is 0).  Counted on the plain meta pass of
+  a one-device mesh, else on the DTensor pass's local tensors: at the
+  real depth where its plain pass fits ``COLLECTIVE_OP_BUDGET``, else
+  extrapolated over the variants (``memory_note`` says which).
+  ``generated_code_size_in_bytes`` is ``null``: nothing is compiled.
 * ``collective_bytes`` / ``collective_counts`` -- from a second pass on
   DTensors under a fake process group of ``num_devices`` ranks (no data
   moves), extrapolated over the variants.  The pass runs on a 2-D
@@ -35,16 +45,31 @@ What each key holds (``analysis/hlo.py`` says what each counter counts):
   together (``mesh.data_axes``), so the layout is the same as on the
   3-D mesh, whose redistribution planner stalled (minutes for one
   layer).  The specs compared with the JAX package stay the 3-D ones.
-  The DeviceMesh is a CPU one (its cost model is the same on every
-  host), and DTensor's CPU mesh has no all-to-all: a Shard-to-Shard
-  redistribution is an all-gather and a local slice, and counts as an
-  all-gather.  A variant whose plain pass dispatches more than
+  The model's communicating layers run ``models/sharded.py``'s per-rank
+  bodies there (vocab-parallel embedding and loss, head-sharded
+  attention, the cache kept where it lies, tensor-parallel SwiGLU,
+  expert-parallel or local MoE), and the gradients are reduced to their
+  moments' layout (``_to_moment_layout``); the rest is DTensor's own
+  propagation.  A Shard-to-Shard move counts as one all-to-all
+  (``hlo.alltoall_as_alltoall``).  RWKV6's train and prefill cells --
+  their costs, collectives and memory -- are counted at the two
+  sequence lengths of ``SEQ_POINTS`` and taken affinely to the cell's,
+  as the JAX package takes its token scan's trips (its variant C): the
+  token loop dispatches ~46 aten ops a token and layer, hours of passes
+  at the cells' lengths; ``extrapolation`` says which extrapolation a
+  record used.  A variant whose plain pass dispatches more than
   ``COLLECTIVE_OP_BUDGET`` aten ops, or whose DTensor pass raises, gets
   ``collective_bytes: null`` and a ``collectives`` key that says why; a
   one-device mesh issues no collectives, so its counts are 0 with no
-  pass.  Under ``REPRO_MOE_EP=1`` (the default) the JAX package
-  dispatches experts that divide the model axis expert-parallel; the
-  port's pass runs the local dispatch, so ``moe_ep_in_counts`` is false.
+  pass.
+* ``redistributions`` -- every explicit move of one pass (the real
+  depth's, or the deepest variant's: ``redistributions_of``), each
+  (where, from, to, kind) once with its count and its result bytes on a
+  device, summed.
+* ``moe_ep_in_counts`` -- whether that pass dispatched the MoE expert-
+  parallel: under ``REPRO_MOE_EP=1`` (the default) wherever
+  ``moe_ep.ep_enabled``'s conditions hold on the mesh, as the JAX
+  package does.
 
 No global state is set on import: the fake process group exists only
 inside ``lower_cell``.
@@ -74,6 +99,7 @@ from repro_torch.configs import INPUT_SHAPES, all_configs, shape_skips
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import mesh as M
 from repro_torch.launch import partition as PT
+from repro_torch.models import sharded
 from repro_torch.models import transformer as T
 from repro_torch.tree import leaves, tree_map
 
@@ -82,6 +108,13 @@ LONG_WINDOW = 8192
 # pass to run: DTensor propagates each op's sharding in Python (~0.5 ms
 # an op once cached, on a CPU core), so this bounds a pass at ~30 s
 COLLECTIVE_OP_BUDGET = 60_000
+# the sequence lengths RWKV6's train and prefill cells are counted at
+# (``_seq_points``).  Costs and prefill's collectives are affine in S;
+# in train, DTensor's own propagation of the RWKV6 mixer (it has no
+# per-rank body) all-gathers a tensor sharded over S once a token, so
+# its collectives and temp grow faster than S, and the fit from these
+# two lengths is a lower bound there
+SEQ_POINTS = (64, 128)
 DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
 
@@ -150,14 +183,19 @@ def _step(cfg: ModelConfig, shape: InputShape, reduce_grads=None):
     return PT.make_decode_step(cfg)
 
 
-def _measure(cfg: ModelConfig, shape: InputShape, mesh, dtype) -> dict:
+def _measure(cfg: ModelConfig, shape: InputShape, mesh, dtype,
+             memory: bool = False) -> dict:
     """The step on plain meta tensors of the global shapes: global flops,
-    bytes and aten ops, and the wall seconds."""
+    bytes and aten ops, the wall seconds, and with ``memory`` the step's
+    memory sizes (one device's where the mesh has one)."""
     t0 = time.perf_counter()
     args = tuple(PT.tensors(s) for s in _structs(cfg, shape, mesh, dtype))
-    cost = count_cost(_step(cfg, shape), *args)
-    return {"flops": cost["flops"], "bytes": cost["bytes accessed"],
-            "ops": cost["ops"], "wall_s": round(time.perf_counter() - t0, 2)}
+    cost = count_cost(_step(cfg, shape), *args, memory=memory)
+    out = {"flops": cost["flops"], "bytes": cost["bytes accessed"],
+           "ops": cost["ops"], "wall_s": round(time.perf_counter() - t0, 2)}
+    if memory:
+        out["memory"] = cost["memory"]
+    return out
 
 
 def _device_mesh(mesh):
@@ -187,24 +225,31 @@ def _dtensor(s, device_mesh, joins):
 def _to_moment_layout(grads, mu):
     """Each gradient redistributed to its moment's placements: the
     gradient reduction of a sharded step (an all-reduce, or a
-    reduce-scatter where the moment is ZeRO-sharded)."""
-    return tree_map(lambda g, m: g.redistribute(m.device_mesh,
-                                                m.placements), grads, mu)
+    reduce-scatter where the moment is ZeRO-sharded), each move
+    recorded."""
+    return tree_map(lambda g, m: sharded.move(g, m.placements,
+                                              "gradient reduction"),
+                    grads, mu)
 
 
 def _measure_collectives(cfg: ModelConfig, shape: InputShape, mesh, dtype,
-                         device_mesh, joins) -> dict:
+                         device_mesh, joins, ep: bool) -> dict:
+    """The step on DTensors: its collectives (``count_collectives``), one
+    device's memory sizes, the moves the sharded bodies made and the MoE
+    dispatches they chose."""
     from torch.distributed.tensor.experimental import implicit_replication
     t0 = time.perf_counter()
     args = tuple(tree_map(lambda s: _dtensor(s, device_mesh, joins), st)
                  for st in _structs(cfg, shape, mesh, dtype))
-    with implicit_replication(), warnings.catch_warnings():
+    with implicit_replication(), warnings.catch_warnings(), \
+            sharded.counting(ep) as run:
         # the port's 1-element position offsets, replicated as meant
         warnings.filterwarnings("ignore", message="Found a non-scalar")
-        coll, counts = count_collectives(
-            _step(cfg, shape, _to_moment_layout), *args)
-    return {"coll": coll, "counts": counts,
-            "wall_s": round(time.perf_counter() - t0, 2)}
+        res = count_collectives(_step(cfg, shape, _to_moment_layout),
+                                *args)
+    res.update(moves=run.moves, ep_layers=run.ep_layers,
+               wall_s=round(time.perf_counter() - t0, 2))
+    return res
 
 
 @contextlib.contextmanager
@@ -232,39 +277,113 @@ def _argument_bytes(cfg, shape, mesh, dtype) -> int:
                for s in leaves(st))
 
 
-def _collectives(cfg, shape, mesh, dtype, plan, variants) -> tuple:
-    """(per-variant collective measurements, or None; what the counts
-    are, or why there are none)."""
+def _seq_points(cfg: ModelConfig, shape: InputShape):
+    """The two sequence lengths RWKV6's train and prefill cells are
+    counted at (its token loop dispatches ~46 aten ops a token and
+    layer), or None: the JAX package's variant C (``_inner_trips``),
+    where the scan's trips are extrapolated."""
+    if cfg.pattern == "rwkv" and shape.mode != "decode" \
+            and shape.seq_len > SEQ_POINTS[1]:
+        return SEQ_POINTS
+    return None
+
+
+def _affine(a, b, s1: int, s2: int, s: int):
+    """Nested numbers a (at s1) and b (at s2) taken affinely to s."""
+    if isinstance(a, dict):
+        return {k: _affine(a[k], b[k], s1, s2, s) for k in a}
+    return a + (b - a) * (s - s1) / (s2 - s1)
+
+
+def _measure_at(cfg, shape, mesh, dtype, points, memory=False) -> dict:
+    """``_measure`` of the cell, or where ``points`` are given, of the
+    cell at those two sequence lengths (kept under ``"points"``), taken
+    affinely to its own."""
+    if points is None:
+        return _measure(cfg, shape, mesh, dtype, memory)
+    at = {s: _measure(cfg, dataclasses.replace(shape, seq_len=s), mesh,
+                      dtype, memory) for s in points}
+    s1, s2 = points
+    out = {k: _affine(at[s1][k], at[s2][k], s1, s2, shape.seq_len)
+           for k in at[s1] if k != "wall_s"}
+    return {**out, "wall_s": round(at[s1]["wall_s"] + at[s2]["wall_s"], 2),
+            "points": at}
+
+
+def _collectives(cfg, shape, mesh, dtype, plan, variants, real,
+                 points) -> tuple:
+    """(per-variant DTensor measurements or None, what the counts are or
+    why there are none, the real depth's pass or None)."""
     n = int(mesh.devices.size)
-    zero = {"coll": {**dict.fromkeys(COLLECTIVE_OPS, 0.0), "total": 0.0},
-            "counts": dict.fromkeys(COLLECTIVE_OPS, 0), "wall_s": 0.0}
     if n == 1:
+        zero = {"coll": {**dict.fromkeys(COLLECTIVE_OPS, 0.0), "total": 0.0},
+                "counts": dict.fromkeys(COLLECTIVE_OPS, 0), "wall_s": 0.0}
         return ({tag: zero for tag in variants},
-                "a one-device mesh issues no collectives (no pass run)")
-    over = {t: m["ops"] for t, m in variants.items()
-            if m["ops"] > COLLECTIVE_OP_BUDGET}
+                "a one-device mesh issues no collectives (no pass run)",
+                None)
+    runs = [(tag, vcfg, shape) for tag, vcfg in plan] if points is None \
+        else [(tag, vcfg, dataclasses.replace(shape, seq_len=s))
+              for tag, vcfg in plan for s in points]
+    ops = {t: variants[t]["ops"] for t, _, _ in runs} if points is None \
+        else {(t, sh.seq_len): variants[t]["points"][sh.seq_len]["ops"]
+              for t, _, sh in runs}
+    over = {str(t): o for t, o in ops.items() if o > COLLECTIVE_OP_BUDGET}
     if over:
         return None, (f"not counted: the plain pass of variants {over} "
                       f"dispatches more aten ops than the DTensor pass's "
-                      f"budget of {COLLECTIVE_OP_BUDGET}")
-    out = {}
+                      f"budget of {COLLECTIVE_OP_BUDGET}"), None
+    ep = os.environ.get("REPRO_MOE_EP", "1") == "1"
+    out, whole = {}, None
     with _fake_group(n):
         device_mesh, joins = _device_mesh(mesh)
         where = (f"DTensor pass on a {tuple(device_mesh.shape)} "
                  f"{device_mesh.mesh_dim_names} CPU DeviceMesh")
-        for tag, vcfg in plan:
+        todo = list(runs)
+        if points is None and real["ops"] <= COLLECTIVE_OP_BUDGET:
+            todo.append(("real", cfg, shape))
+        for tag, vcfg, sh in todo:
             try:
-                out[tag] = _measure_collectives(vcfg, shape, mesh, dtype,
-                                                device_mesh, joins)
+                res = _measure_collectives(vcfg, sh, mesh, dtype,
+                                           device_mesh, joins, ep)
             except Exception as e:   # noqa: BLE001 -- recorded as the why
                 msg = (str(e).strip().splitlines() or [""])[0]
                 print(f"collectives {cfg.name} {shape.name} {tag}: "
                       f"{type(e).__name__}: {msg}", file=sys.stderr)
                 return None, (f"not counted: the {where} raised at "
                               f"variant {tag}: {type(e).__name__}: "
-                              f"{msg[:300]}")
+                              f"{msg[:300]}"), None
+            if tag == "real":
+                whole = res
+            else:
+                out.setdefault(tag, {})[sh.seq_len] = res
+    if points is None:
+        out = {tag: v[shape.seq_len] for tag, v in out.items()}
+    else:
+        s1, s2 = points
+        keys = ("coll", "counts", "memory")
+        out = {tag: {**v[s2], **{k: _affine(v[s1][k], v[s2][k], s1, s2,
+                                            shape.seq_len) for k in keys}}
+               for tag, v in out.items()}
     return out, (f"{where} under a fake process group of {n} ranks, "
-                 f"extrapolated over the variants")
+                 f"extrapolated over the variants"), whole
+
+
+def _redistributions(moves: list[dict]) -> list[dict]:
+    """The moves of one pass, each (where, from, to, kind) once with its
+    count and its bytes summed."""
+    agg: dict[tuple, dict] = {}
+    for mv in moves:
+        key = (mv["where"], mv["from"], mv["to"], mv["kind"])
+        row = agg.setdefault(key, {"where": key[0], "from": key[1],
+                                   "to": key[2], "kind": key[3],
+                                   "times": 0, "bytes": 0})
+        row["times"] += 1
+        row["bytes"] += mv["bytes"]
+    return list(agg.values())
+
+
+MEMORY_KEYS = ("output_size_in_bytes", "temp_size_in_bytes",
+               "alias_size_in_bytes")
 
 
 def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
@@ -272,12 +391,14 @@ def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
     """Count the real cell and the two depth variants; return the record
     (module docstring for each key)."""
     cfg = cell_config(cfg, shape)
-    real = _measure(cfg, shape, mesh, dtype)
-    plan = _variant_plan(cfg)
-    variants = {tag: _measure(vcfg, shape, mesh, dtype)
-                for tag, vcfg in plan}
-    coll, why = _collectives(cfg, shape, mesh, dtype, plan, variants)
     n = int(mesh.devices.size)
+    points = _seq_points(cfg, shape)
+    real = _measure_at(cfg, shape, mesh, dtype, points, memory=n == 1)
+    plan = _variant_plan(cfg)
+    variants = {tag: _measure_at(vcfg, shape, mesh, dtype, points)
+                for tag, vcfg in plan}
+    coll, why, whole = _collectives(cfg, shape, mesh, dtype, plan,
+                                    variants, real, points)
 
     def extract(ms, key, sub=None):
         vals = {t: (m[key] if sub is None else m[key][sub])
@@ -285,12 +406,33 @@ def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
         return _extrapolate(vals, cfg)
 
     coll_true = coll_counts = None
+    memory = dict.fromkeys(MEMORY_KEYS)
+    depth = [tag for tag, _ in plan]
+    if n == 1:
+        memory.update({k: int(round(v)) for k, v in real["memory"].items()})
+        note = "the real depth's plain meta pass (one device)" + (
+            f", affinely in the sequence length from {list(points)}"
+            if points else "")
+    elif whole is not None:
+        memory.update(whole["memory"])
+        note = "the real depth's DTensor pass (one device's local tensors)"
+    elif coll is not None:
+        memory.update({k: int(round(extract(coll, "memory", k)))
+                       for k in MEMORY_KEYS})
+        note = (f"extrapolated over the depth variants {depth}"
+                + (f" and, in each, affinely in the sequence length "
+                   f"from {list(points)}" if points else "")
+                + " (one device's local tensors)")
+    else:
+        note = "not counted: the DTensor pass did not run (collectives)"
     if coll is not None:
         coll_true = {kind: extract(coll, "coll", kind)
                      for kind in COLLECTIVE_OPS}
         coll_true["total"] = sum(coll_true.values())
         coll_counts = {kind: int(round(extract(coll, "counts", kind)))
                        for kind in COLLECTIVE_OPS}
+    passes = [whole] if whole is not None else \
+        [coll[depth[-1]]] if coll is not None and n > 1 else []
     ep = os.environ.get("REPRO_MOE_EP", "1") == "1"
     cost = {"flops": real["flops"] / n, "bytes accessed": real["bytes"] / n}
     return {
@@ -303,28 +445,33 @@ def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
         "cost_extrapolated": {"flops": extract(variants, "flops") / n,
                               "bytes accessed": extract(variants, "bytes")
                               / n},
+        "extrapolation": {"depth": depth,
+                          "seq_len": list(points) if points else None},
         "memory": {"argument_size_in_bytes":
                    _argument_bytes(cfg, shape, mesh, dtype),
-                   "output_size_in_bytes": None,
-                   "temp_size_in_bytes": None,
-                   "alias_size_in_bytes": None,
-                   "generated_code_size_in_bytes": None},
-        "memory_note": "meta tensors have no allocator: only the "
-                       "arguments' per-device bytes (from their specs) "
-                       "are known; nothing the step allocates is measured",
+                   **memory, "generated_code_size_in_bytes": None},
+        "memory_note": f"{note}; generated code: none, nothing is "
+                       f"compiled",
         "collective_bytes": coll_true,
         "collective_counts": coll_counts,
         "collectives": why,
+        "redistributions": _redistributions(passes[0]["moves"])
+        if passes else None,
+        "redistributions_of": None if not passes
+        else "the real depth" if whole is not None
+        else f"variant {depth[-1]}"
+        + (f" at seq_len {points[1]}" if points else ""),
         "moe_ep_requested": bool(ep and cfg.num_experts),
-        "moe_ep_in_counts": False,
+        "moe_ep_in_counts": any(p["ep_layers"] for p in passes),
         "model_flops": cfg.model_flops(
             seq_len=shape.seq_len, batch=shape.global_batch,
             mode=shape.mode),
-        "aten_ops": real["ops"],
+        "aten_ops": int(round(real["ops"])),
         "compile_s": real["wall_s"],
         "variant_wall_s": {t: m["wall_s"] for t, m in variants.items()},
         "collective_wall_s": None if coll is None
-        else {t: m["wall_s"] for t, m in coll.items()},
+        else {**{t: m["wall_s"] for t, m in coll.items()},
+              **({"real": whole["wall_s"]} if whole else {})},
     }
 
 

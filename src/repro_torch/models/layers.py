@@ -10,7 +10,10 @@
 
 All functions are pure (params as dicts of tensors; a cache update returns
 new tensors and leaves its argument as it was); layer stacking lives in
-``models/transformer.py``.  The mixers are plain torch, as the JAX
+``models/transformer.py``.  On DTensors (the dry-run's
+sharded pass) ``embed``, ``token_logprobs``, ``attention``, ``swiglu``
+and ``moe`` run ``models/sharded.py``'s per-rank bodies; on plain
+tensors, the ops below.  The mixers are plain torch, as the JAX
 package's are plain jnp: the sequence kernels of ``kernels/ops.py`` have no
 KV ring buffer, sliding window or initial state.  The JAX package's
 ``jax.lax.scan``s (Mamba2 chunks, RWKV6 tokens) are Python loops here.
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharded
 
 
 def _normal(g: torch.Generator, shape, dtype, scale: float,
@@ -67,6 +71,23 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``: x * sigmoid(x), with ``sigmoid`` above."""
     return x * sigmoid(x)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` (vocab-parallel on DTensors)."""
+    if sharded.is_dtensor(table):
+        return sharded.embed(table, tokens)
+    return table[tokens]
+
+
+def token_logprobs(logits: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """log_softmax(logits)[..., label] per token (vocab-parallel on
+    DTensors)."""
+    if sharded.is_dtensor(logits):
+        return sharded.token_logprobs(logits, labels)
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(logp, -1, labels[..., None].long())[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +162,11 @@ def attention(cfg: ModelConfig, p, x: torch.Tensor, *,
     written at slot ``pos % M`` (a ring buffer: exact for both full caches
     M >= total length and sliding-window caches M == window).  One call
     must write at most M positions: with more, slots repeat and which
-    write wins is unspecified (as in the JAX package's scatter)."""
+    write wins is unspecified (as in the JAX package's scatter).  On
+    DTensors: ``sharded.attention``."""
+    if sharded.is_dtensor(x):
+        return sharded.attention(cfg, p, x, positions=positions,
+                                 cache=cache, causal=causal)
     B, S, d = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     g = h // kv
@@ -202,6 +227,8 @@ def init_mlp_params(d: int, ff: int, g: torch.Generator,
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    if sharded.is_dtensor(x):
+        return sharded.swiglu(p, x)
     return (silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
 
 
@@ -247,16 +274,28 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor):
     which an atomic ``index_add_`` would not promise.  It may differ from
     JAX's sum in the last bits."""
     from repro_torch.models import moe_ep
+    if sharded.is_dtensor(x):
+        return sharded.moe(cfg, p, x)
     if moe_ep.ep_enabled(cfg, x.shape):
         return moe_ep.moe_expert_parallel(cfg, p, x)
     B, S, d = x.shape
-    T = B * S
+    y, aux = moe_local(cfg, p["router"], p["wg"], p["wu"], p["wd"],
+                       x.reshape(B * S, d))
+    return y.reshape(B, S, d), aux
+
+
+def moe_local(cfg: ModelConfig, router, wg, wu, wd, xt: torch.Tensor,
+              experts: tuple[int, int] | None = None):
+    """The local dispatch of ``moe``: xt (T, d) -> (y (T, d), aux).
+    ``experts`` = (e0, e1): the weights hold experts e0..e1-1 only (the
+    dry-run's expert-sharded rank), whose outputs are the only ones
+    combined; default all."""
+    T, d = xt.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     C = moe_capacity(cfg, T)
-    xt = x.reshape(T, d)
-    dev = x.device
+    dev = xt.device
 
-    logits = xt.float() @ p["router"]                          # (T, E)
+    logits = xt.float() @ router                               # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, eidx = torch.topk(probs, K, dim=-1)                  # (T, K)
     gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
@@ -280,13 +319,20 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor):
                            device=dev).index_put((slot,), st)[:-1]
 
     xe = xt[slot_tok].reshape(E, C, d)                         # gather
-    h = silu(torch.einsum("ecd,edf->ecf", xe, p["wg"])) \
-        * torch.einsum("ecd,edf->ecf", xe, p["wu"])
-    ye = torch.einsum("ecf,efd->ecd", h, p["wd"]).reshape(E * C, d)
+    if experts is not None:
+        xe = xe[experts[0]:experts[1]]
+    h = silu(torch.einsum("ecd,edf->ecf", xe, wg)) \
+        * torch.einsum("ecd,edf->ecf", xe, wu)
+    ye = torch.einsum("ecf,efd->ecd", h, wd).reshape(-1, d)
 
     # combine: each pair's slot (trash = a zero row), summed in top-k order
     pair_slot = torch.empty_like(slot)
     pair_slot[order] = slot
+    if experts is not None:
+        lo, hi = experts[0] * C, experts[1] * C
+        pair_slot = torch.where((pair_slot >= lo) & (pair_slot < hi),
+                                pair_slot - lo,
+                                torch.full_like(pair_slot, hi - lo))
     ye = torch.cat([ye, ye.new_zeros((1, d))])[pair_slot].reshape(T, K, d)
     wk = flat_g.reshape(T, K).to(ye.dtype)
     y = torch.zeros((T, d), dtype=ye.dtype, device=dev)
@@ -297,7 +343,7 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor):
     me = probs.mean(dim=0)                                     # (E,)
     ce = count_ids(eidx, E) / (T * K)
     aux = E * torch.sum(me * ce)
-    return y.reshape(B, S, d), aux
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

@@ -248,8 +248,8 @@ def _embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
     (vision patches / audio frames).  Encoder-only audio archs may have no
     tokens at all (pure frame input)."""
     tok = batch.get("tokens")
-    x = params["embed"][tok] if tok is not None and tok.shape[-1] > 0 \
-        else None
+    x = L.embed(params["embed"], tok) \
+        if tok is not None and tok.shape[-1] > 0 else None
     if cfg.frontend != "none" and "prefix_embeds" in batch:
         pe = batch["prefix_embeds"]
         pe = pe.to(x.dtype if x is not None else params["embed"].dtype)
@@ -386,7 +386,7 @@ def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor,
     """One-token serve step. tokens: (B, 1). Returns (logits, new_cache)."""
     if cfg.is_encoder:
         raise ValueError("encoder-only archs have no decode step")
-    x = params["embed"][tokens]
+    x = L.embed(params["embed"], tokens)
     B, S, _ = x.shape
     positions = _positions(cache.pos, B, 1, x.device)
     if cfg.pattern == "mamba" and cfg.attn_every:
@@ -413,8 +413,7 @@ def loss_fn(cfg: ModelConfig, params, batch, aux_weight: float = 0.01):
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=logits.device)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    ll = L.token_logprobs(logits, labels)
     ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     loss = ce + aux_weight * aux
     return loss, {"ce": ce, "aux": aux}

@@ -163,10 +163,19 @@ def test_flops_equal_the_matmul_count_by_hand(arch, mode):
 @pytest.mark.parametrize("arch", DEPTHS)
 def test_argument_bytes_equal_jax_memory_analysis(jax_records,
                                                   port_records, arch):
-    assert port_records[arch]["memory"]["argument_size_in_bytes"] == \
+    """The arguments' bytes equal JAX's ``memory_analysis``; the step's
+    own sizes are counted (``analysis/hlo.py``'s ``LiveBytes`` on the
+    DTensor pass), as numbers; nothing is compiled, so no code size."""
+    mem = port_records[arch]["memory"]
+    assert mem["argument_size_in_bytes"] == \
         jax_records[arch]["memory"]["argument_size_in_bytes"]
-    assert port_records[arch]["memory"]["temp_size_in_bytes"] is None
-    assert "allocator" in port_records[arch]["memory_note"]
+    for key in ("temp_size_in_bytes", "output_size_in_bytes",
+                "alias_size_in_bytes"):
+        assert isinstance(mem[key], int) and mem[key] >= 0, (key, mem)
+    assert mem["temp_size_in_bytes"] > 0
+    assert mem["output_size_in_bytes"] > 0
+    assert mem["generated_code_size_in_bytes"] is None
+    assert "nothing is compiled" in port_records[arch]["memory_note"]
 
 
 @pytest.mark.parametrize("arch", DEPTHS)
@@ -190,20 +199,25 @@ def test_collectives_counted_on_the_joined_mesh(port_records, arch):
     assert rec["moe_ep_in_counts"] is False
 
 
-def test_a_cell_whose_collective_pass_raises_records_why():
-    """Reduced Qwen3-4B's 2 kv heads of 64 on a model axis of 4: each
-    device holds half a head of wk's columns, which DTensor cannot
-    reshape into heads.  The record keeps its flops and says why it has
-    no collectives; the fake group is torn down."""
+def test_a_cell_whose_collective_pass_raises_records_why(monkeypatch):
+    """A DTensor pass that raises -- here the sharded attention body,
+    made to raise; the plain passes never call it -- leaves the record
+    its flops and says why it has no collectives; the fake group is torn
+    down."""
     import torch.distributed as dist
-    mesh = M.make_debug_mesh((2, 1, 4), ("pod", "data", "model"),
-                             device="meta")
+
+    from repro_torch.models import sharded
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("no head-aligned layout")
+    monkeypatch.setattr(sharded, "attention", refuse)
     rec = DR.lower_cell(reduced("qwen3-4b"), InputShape("t", 64, 8,
                                                         "decode"),
-                        mesh, "test-mesh")
+                        _mesh(), "test-mesh")
     assert rec["collective_bytes"] is None
     assert rec["collective_counts"] is None
     assert "raised" in rec["collectives"]
+    assert "no head-aligned layout" in rec["collectives"]
     assert rec["cost"]["flops"] > 0
     assert not dist.is_initialized()
 

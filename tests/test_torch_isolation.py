@@ -69,6 +69,7 @@ def test_the_walk_covers_every_module_of_the_port():
                    "training/optimizer.py", "training/checkpoint.py",
                    "training/train_loop.py", "launch/train.py",
                    "launch/partition.py", "launch/dryrun.py",
+                   "models/sharded.py",
                    "analysis/hlo.py", "analysis/roofline.py",
                    "core/knobs.py", "tree.py"):
         assert f"repro_torch/{module}" in names
