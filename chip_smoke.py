@@ -156,9 +156,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    alias, against phase 11's peak less what earlier phases held, and
    one ``make_decode_step`` at full size (batch 4, a 128-slot cache),
    output + temp - alias, against ``max_memory_allocated`` less
-   ``memory_allocated`` before the step (after one untimed step); each
-   within ``MEMORY_BAND`` (5% + 256 MiB: cuBLAS's workspace and the
-   allocator's rounding).
+   ``memory_allocated`` before the step (after one untimed step), and
+   one train step of each recurrent kind at full width and phase 11's
+   cut depth (RWKV6-7B 2 layers, whose token loop keeps a (64, 64) fp32
+   state a head, token and sample for the backward; Zamba2-7B 6, one
+   application of the shared block), batch 2 x 512, arguments + output +
+   temp - alias against the peak less what was allocated before its
+   weights; each within ``MEMORY_BAND`` (5% + 256 MiB: cuBLAS's
+   workspace and the allocator's rounding).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without ``src/repro_torch`` beside it, the script exits
@@ -1707,6 +1712,9 @@ def phase_split(torch, configs, core, profiles, T, X, M, launches, dev):
 # ---------------------------------------------------------------------------
 TRAIN_TOL = 1e-4
 TRAIN_KINDS = [("qwen3-4b", 2)] + [(name, n) for name, n, _ in BLOCK_KINDS]
+# phase 13c (iii): the recurrent kinds at phase 11's depths
+MEMORY_KINDS = [(name, n) for name, n, _ in BLOCK_KINDS
+                if name in ("rwkv6-7b", "zamba2-7b")]
 
 
 def train_arithmetic(cfg, n_params: int, tokens: int) -> dict:
@@ -2133,8 +2141,8 @@ def phase_dryrun(torch, configs, dryrun, mesh_lib, roofline, train_row,
     return out
 
 
-def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, train_row,
-                 dev) -> dict:
+def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, optimizer,
+                 train_row, dev) -> dict:
     """Phase 13c: the dry-run's memory sizes (one-device mesh, fp32)
     against the card's allocator, each within ``MEMORY_BAND``: (i) phase
     11's Qwen3-4B train cell, the whole step (arguments + output + temp -
@@ -2142,7 +2150,14 @@ def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, train_row,
     one ``make_decode_step`` of Qwen3-4B at full size, batch 4, a
     128-slot cache, the step's own bytes (output + temp - alias) against
     ``max_memory_allocated`` less ``memory_allocated`` before it, after
-    one untimed step on the same arguments."""
+    one untimed step on the same arguments; (iii) for each of
+    ``MEMORY_KINDS`` (full width, phase 11's cut depth), one
+    ``make_train_step`` at batch 2 x 512 from fresh weights and moments,
+    the whole step against the peak less what was allocated before the
+    weights (RWKV6's counts are fit affinely from S 64 and 128)."""
+    import dataclasses
+    import math
+
     from repro_torch.configs.base import InputShape
     cfg = configs.all_configs()["qwen3-4b"]
     mesh = mesh_lib.make_debug_mesh((1,), ("data",), device="meta")
@@ -2191,6 +2206,31 @@ def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, train_row,
     held_to("decode", rec["memory"], peak - before, False)
     del out, params, cache
     torch.cuda.empty_cache()
+
+    for name, n_layers in MEMORY_KINDS:
+        kcfg = dataclasses.replace(configs.all_configs()[name],
+                                   num_layers=n_layers)
+        shape = InputShape("train_2x512", 512, 2, "train")
+        rec = dryrun.lower_cell(kcfg, shape, mesh, "one-card",
+                                dtype=torch.float32)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        params = T.init_params(kcfg, 0, torch.float32, dev)
+        opt_state = optimizer.init_state(params)
+        g = torch.Generator().manual_seed(14)
+        batch = {k: torch.randint(0, kcfg.vocab_size, (2, 512),
+                                  generator=g).to(dev, torch.int32)
+                 for k in ("tokens", "labels")}
+        out = partition.make_train_step(kcfg)(params, opt_state, batch)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        loss = float(out[2]["loss"])
+        check(math.isfinite(loss), f"phase 13c {name}: loss {loss}")
+        held_to(name, rec["memory"], peak - before, True)
+        del out, params, opt_state, batch
+        torch.cuda.empty_cache()
     print(f"phase 13c: the dry-run's memory counter against the card "
           f"({card_line()}): " + "; ".join(
               f"{k} predicted {r['predicted_bytes'] / 2**30:.3f} GiB, "
@@ -2358,7 +2398,8 @@ def main() -> int:
     dryrun_runs = phase_dryrun(torch, configs, dryrun, mesh_lib, roofline,
                                train_runs["full"], decode_runs[0])
     memory_runs = phase_memory(torch, configs, transformer, partition,
-                               dryrun, mesh_lib, train_runs["full"], dev)
+                               dryrun, mesh_lib, optimizer,
+                               train_runs["full"], dev)
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     kernels = []

@@ -48,7 +48,8 @@ What each key holds (``analysis/hlo.py`` says what each counter counts):
   The model's communicating layers run ``models/sharded.py``'s per-rank
   bodies there (vocab-parallel embedding and loss, head-sharded
   attention, the cache kept where it lies, tensor-parallel SwiGLU,
-  expert-parallel or local MoE), and the gradients are reduced to their
+  expert-parallel or local MoE, head-local RWKV6 and Mamba2 mixers on
+  their head-sharded states), and the gradients are reduced to their
   moments' layout (``_to_moment_layout``); the rest is DTensor's own
   propagation.  A Shard-to-Shard move counts as one all-to-all
   (``hlo.alltoall_as_alltoall``).  RWKV6's train and prefill cells --
@@ -56,8 +57,13 @@ What each key holds (``analysis/hlo.py`` says what each counter counts):
   sequence lengths of ``SEQ_POINTS`` and taken affinely to the cell's,
   as the JAX package takes its token scan's trips (its variant C): the
   token loop dispatches ~46 aten ops a token and layer, hours of passes
-  at the cells' lengths; ``extrapolation`` says which extrapolation a
-  record used.  A variant whose plain pass dispatches more than
+  at the cells' lengths.  Their costs and collectives are affine in S
+  (the mixer's body gathers no token, and its backward stacks the
+  tokens' gradients once), so that fit is exact; their memory is not
+  (``_seq_points``): one device's is counted at the cell's own length
+  up to ``SEQ_MEMORY_DIRECT``, and a train cell's fit memory is a lower
+  bound (``memory_note`` says so).  ``extrapolation`` says which
+  extrapolation a record used.  A variant whose plain pass dispatches more than
   ``COLLECTIVE_OP_BUDGET`` aten ops, or whose DTensor pass raises, gets
   ``collective_bytes: null`` and a ``collectives`` key that says why; a
   one-device mesh issues no collectives, so its counts are 0 with no
@@ -109,12 +115,13 @@ LONG_WINDOW = 8192
 # an op once cached, on a CPU core), so this bounds a pass at ~30 s
 COLLECTIVE_OP_BUDGET = 60_000
 # the sequence lengths RWKV6's train and prefill cells are counted at
-# (``_seq_points``).  Costs and prefill's collectives are affine in S;
-# in train, DTensor's own propagation of the RWKV6 mixer (it has no
-# per-rank body) all-gathers a tensor sharded over S once a token, so
-# its collectives and temp grow faster than S, and the fit from these
-# two lengths is a lower bound there
+# (``_seq_points``); their costs and collectives are affine in S
 SEQ_POINTS = (64, 128)
+# the longest such cell whose one-device memory is counted at its own
+# length (a plain pass of its token loop: ~10 s for 2 RWKV6-7B layers
+# at 512), not fit: the step's peak is the largest of its stages', and
+# which stage peaks moves with S (``_seq_points``)
+SEQ_MEMORY_DIRECT = 512
 DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
 
@@ -281,7 +288,16 @@ def _seq_points(cfg: ModelConfig, shape: InputShape):
     """The two sequence lengths RWKV6's train and prefill cells are
     counted at (its token loop dispatches ~46 aten ops a token and
     layer), or None: the JAX package's variant C (``_inner_trips``),
-    where the scan's trips are extrapolated."""
+    where the scan's trips are extrapolated.  A cell's costs and
+    collectives are affine in S, so their fit from the two is the cell's
+    count (``tests/test_torch_dryrun_sharded.py`` holds it at S 256).
+    Its memory is not: the peak is the largest of the step's stages',
+    each affine in S, and in train the optimizer's (all the gradients)
+    peaks at short S, a block's recompute (its tokens' saved states)
+    past a few hundred tokens (2 RWKV6-7B layers at batch 2: 5.17 GB of
+    temp at S 64, 128 and 256, 6.33 GB at 512).  A fit from short
+    lengths is then a lower bound; ``lower_cell`` counts one device's
+    memory at the cell's own length up to ``SEQ_MEMORY_DIRECT``."""
     if cfg.pattern == "rwkv" and shape.mode != "decode" \
             and shape.seq_len > SEQ_POINTS[1]:
         return SEQ_POINTS
@@ -394,6 +410,11 @@ def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
     n = int(mesh.devices.size)
     points = _seq_points(cfg, shape)
     real = _measure_at(cfg, shape, mesh, dtype, points, memory=n == 1)
+    direct = n == 1 and points is not None \
+        and shape.seq_len <= SEQ_MEMORY_DIRECT
+    if direct:
+        real["memory"] = _measure(cfg, shape, mesh, dtype,
+                                  memory=True)["memory"]
     plan = _variant_plan(cfg)
     variants = {tag: _measure_at(vcfg, shape, mesh, dtype, points)
                 for tag, vcfg in plan}
@@ -408,11 +429,14 @@ def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
     coll_true = coll_counts = None
     memory = dict.fromkeys(MEMORY_KEYS)
     depth = [tag for tag, _ in plan]
+    bound = (f"; a lower bound where the step's peak moves to another "
+             f"stage past S {points[1]} (train: a block's recompute)"
+             if points and shape.mode == "train" else "")
     if n == 1:
         memory.update({k: int(round(v)) for k, v in real["memory"].items()})
         note = "the real depth's plain meta pass (one device)" + (
             f", affinely in the sequence length from {list(points)}"
-            if points else "")
+            f"{bound}" if points and not direct else "")
     elif whole is not None:
         memory.update(whole["memory"])
         note = "the real depth's DTensor pass (one device's local tensors)"
@@ -422,7 +446,7 @@ def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
         note = (f"extrapolated over the depth variants {depth}"
                 + (f" and, in each, affinely in the sequence length "
                    f"from {list(points)}" if points else "")
-                + " (one device's local tensors)")
+                + f" (one device's local tensors){bound}")
     else:
         note = "not counted: the DTensor pass did not run (collectives)"
     if coll is not None:

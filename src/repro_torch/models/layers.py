@@ -11,8 +11,9 @@
 All functions are pure (params as dicts of tensors; a cache update returns
 new tensors and leaves its argument as it was); layer stacking lives in
 ``models/transformer.py``.  On DTensors (the dry-run's
-sharded pass) ``embed``, ``token_logprobs``, ``attention``, ``swiglu``
-and ``moe`` run ``models/sharded.py``'s per-rank bodies; on plain
+sharded pass) ``embed``, ``token_logprobs``, ``attention``, ``swiglu``,
+``moe``, ``mamba2``, ``mamba2_step`` and ``rwkv6`` run
+``models/sharded.py``'s per-rank bodies; on plain
 tensors, the ops below.  The mixers are plain torch, as the JAX
 package's are plain jnp: the sequence kernels of ``kernels/ops.py`` have no
 KV ring buffer, sliding window or initial state.  The JAX package's
@@ -403,7 +404,10 @@ def _causal_conv(xs: torch.Tensor, w: torch.Tensor,
 
 def mamba2(cfg: ModelConfig, p, x: torch.Tensor,
            state: MambaState | None = None, chunk: int = 64):
-    """Full-sequence (chunked SSD) form. x: (B, S, d) -> (y, new_state)."""
+    """Full-sequence (chunked SSD) form. x: (B, S, d) -> (y, new_state).
+    On DTensors: ``sharded.mamba2``."""
+    if sharded.is_dtensor(x):
+        return sharded.mamba2(cfg, p, x, state, chunk)
     B, S, d = x.shape
     inner = cfg.ssm_expand * d
     nh, ds, G = cfg.n_mamba_heads, cfg.ssm_state, cfg.ssm_groups
@@ -417,6 +421,23 @@ def mamba2(cfg: ModelConfig, p, x: torch.Tensor,
     rep = nh // G
     Bh = Bm.reshape(B, S, G, ds).repeat_interleave(rep, dim=2).float()
     Ch = Cm.reshape(B, S, G, ds).repeat_interleave(rep, dim=2).float()
+    h = torch.zeros((B, nh, hp, ds), dtype=torch.float32, device=x.device) \
+        if state is None else state.h.float()
+    y, h = ssd_chunked(xh, Bh, Ch, dt, A, p["D"], h, chunk)
+    y = y.reshape(B, S, inner).to(x.dtype)
+    y = y * silu(z)
+    y = rmsnorm(y, p["gate_norm"], cfg.norm_eps)
+    return y @ p["out_proj"], MambaState(h=h.float(), conv=new_tail)
+
+
+def ssd_chunked(xh, Bh, Ch, dt, A, D, h, chunk: int):
+    """The chunked SSD of ``mamba2`` over heads that each read their own
+    B and C: xh (B, S, nh, hp), Bh and Ch (B, S, nh, ds), dt (B, S, nh),
+    all fp32; A and D (nh,); h the (B, nh, hp, ds) state before the
+    first token.  Returns y (B, S, nh, hp) with the D skip, and the state
+    after the last token."""
+    B, S, nh, hp = xh.shape
+    ds = Bh.shape[-1]
     la = dt * A[None, None, :]                                 # log decay
 
     # pad to a chunk multiple
@@ -436,7 +457,7 @@ def mamba2(cfg: ModelConfig, p, x: torch.Tensor,
     cs = torch.cumsum(la_c, dim=2)                       # within-chunk cumsum
     seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]    # (B,nC,t,u,nh)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=x.device))
+                                device=xh.device))
     decay = torch.where(tri[None, None, :, :, None], torch.exp(seg),
                         torch.zeros_like(seg))
 
@@ -445,36 +466,39 @@ def mamba2(cfg: ModelConfig, p, x: torch.Tensor,
     att = cb * decay
     y_intra = torch.einsum("bctuh,bcuh,bcuhp->bcthp", att, dt_c, xh)
 
-    # inter-chunk: a loop over chunks carrying the state
+    # inter-chunk: the state carried from chunk to chunk
     chunk_decay = torch.exp(cs[:, :, -1, :])             # (B,nC,nh)
     # state contribution of each chunk: sum_u exp(cs_last - cs_u) dt_u B_u x_u^T
     w_u = torch.exp(cs[:, :, -1:, :] - cs) * dt_c        # (B,nC,chunk,nh)
     chunk_state = torch.einsum("bcuh,bcuhn,bcuhp->bchpn", w_u, Bh, xh)
 
-    h = torch.zeros((B, nh, hp, ds), dtype=torch.float32, device=x.device) \
-        if state is None else state.h.float()
+    # the loop walks ``unbind``'s views, whose backward stacks the
+    # gradients once (indexing a chunk at a time would make a
+    # zero-filled full-size gradient a chunk)
     y_inter = []
-    for c in range(nC):
+    for C_c, cs_c, dec_c, st_c in zip(Ch.unbind(1), cs.unbind(1),
+                                      chunk_decay.unbind(1),
+                                      chunk_state.unbind(1)):
         # y_inter[t] = C_t . (h * exp(cs_t))
-        y_inter.append(torch.einsum("bthn,bhpn,bth->bthp", Ch[:, c], h,
-                                    torch.exp(cs[:, c])))
-        h = h * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+        y_inter.append(torch.einsum("bthn,bhpn,bth->bthp", C_c, h,
+                                    torch.exp(cs_c)))
+        h = h * dec_c[:, :, None, None] + st_c
     y_inter = torch.stack(y_inter, dim=1)                # (B,nC,chunk,nh,hp)
 
     y = (y_intra + y_inter).reshape(B, nC * chunk, nh, hp)[:, :S]
     y = y + xh.reshape(B, nC * chunk, nh, hp)[:, :S] \
-        * p["D"][None, None, :, None]
-    y = y.reshape(B, S, inner).to(x.dtype)
-    y = y * silu(z)
-    y = rmsnorm(y, p["gate_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], MambaState(h=h.float(), conv=new_tail)
+        * D[None, None, :, None]
+    return y, h
 
 
 def mamba2_step(cfg: ModelConfig, p, x: torch.Tensor, state: MambaState):
-    """Single-token decode. x: (B, 1, d)."""
+    """Single-token decode. x: (B, 1, d).  On DTensors:
+    ``sharded.mamba2_step``."""
     B, S, d = x.shape
     if S != 1:
         raise ValueError(f"mamba2_step takes one token, got {S}")
+    if sharded.is_dtensor(x):
+        return sharded.mamba2_step(cfg, p, x, state)
     inner = cfg.ssm_expand * d
     nh, ds, G = cfg.n_mamba_heads, cfg.ssm_state, cfg.ssm_groups
     hp = inner // nh
@@ -482,18 +506,25 @@ def mamba2_step(cfg: ModelConfig, p, x: torch.Tensor, state: MambaState):
     xs, new_tail = _causal_conv(xs, p["conv_w"], state.conv)
     dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]           # (B,nh)
     A = -torch.exp(p["A_log"])
-    a = torch.exp(dt * A[None, :])                             # (B,nh)
     xh = xs.reshape(B, nh, hp).float()
     rep = nh // G
     Bh = Bm.reshape(B, G, ds).repeat_interleave(rep, dim=1).float()
     Ch = Cm.reshape(B, G, ds).repeat_interleave(rep, dim=1).float()
-    h = state.h * a[:, :, None, None] \
-        + torch.einsum("bh,bhp,bhn->bhpn", dt, xh, Bh)
-    y = torch.einsum("bhn,bhpn->bhp", Ch, h) + xh * p["D"][None, :, None]
+    y, h = ssd_step(xh, Bh, Ch, dt, A, p["D"], state.h)
     y = y.reshape(B, 1, inner).to(x.dtype)
     y = y * silu(z)
     y = rmsnorm(y, p["gate_norm"], cfg.norm_eps)
     return y @ p["out_proj"], MambaState(h=h, conv=new_tail)
+
+
+def ssd_step(xh, Bh, Ch, dt, A, D, h):
+    """One token of the SSD: xh (B, nh, hp), Bh and Ch (B, nh, ds), dt
+    (B, nh), fp32; returns y (B, nh, hp) and the new state."""
+    a = torch.exp(dt * A[None, :])                             # (B,nh)
+    h = h * a[:, :, None, None] \
+        + torch.einsum("bh,bhp,bhn->bhpn", dt, xh, Bh)
+    y = torch.einsum("bhn,bhpn->bhp", Ch, h) + xh * D[None, :, None]
+    return y, h
 
 
 # ---------------------------------------------------------------------------
@@ -551,11 +582,28 @@ def rwkv6_step(s_wkv: torch.Tensor, rt, kt, vt, wt, u: torch.Tensor):
     return s_wkv * wt[:, :, :, None] + kv, out
 
 
+def wkv_scan(r, k, v, w, u, s_wkv):
+    """``rwkv6_step`` over the tokens of r, k, v, w (B, S, nh, hd) from
+    the (B, nh, hd, hd) state ``s_wkv``: the fp32 (B, S, nh, hd) outputs
+    and the state after the last token.  The tokens are ``unbind``'s
+    views, whose backward stacks their gradients once (indexing a token
+    at a time would make a zero-filled (B, S, nh, hd) gradient a token:
+    S^2 bytes a step)."""
+    outs = []
+    for rt, kt, vt, wt in zip(*(t.unbind(1) for t in (r, k, v, w))):
+        s_wkv, out = rwkv6_step(s_wkv, rt, kt, vt, wt, u)
+        outs.append(out)
+    return torch.stack(outs, dim=1), s_wkv
+
+
 def rwkv6(cfg: ModelConfig, p, x: torch.Tensor,
           state: RWKVState | None = None):
     """Full-sequence RWKV6 (decode is the same call with S = 1).
     x: (B,S,d) -> (y, new_state).  Data-dependent per-channel decay
-    w_t = exp(-exp(ww x + b)); static token-shift lerp."""
+    w_t = exp(-exp(ww x + b)); static token-shift lerp.  On DTensors:
+    ``sharded.rwkv6``."""
+    if sharded.is_dtensor(x):
+        return sharded.rwkv6(cfg, p, x, state)
     B, S, d = x.shape
     nh, hd = d // RWKV_HD, RWKV_HD
     if state is None:
@@ -575,13 +623,8 @@ def rwkv6(cfg: ModelConfig, p, x: torch.Tensor,
     gt = silu(mix(4) @ p["wg"])
     u = p["u"].reshape(nh, hd)
 
-    s_wkv = state.wkv
-    outs = []
-    for t in range(S):
-        s_wkv, out = rwkv6_step(s_wkv, r[:, t], k[:, t], v[:, t],
-                                w[:, t], u)
-        outs.append(out)
-    y = torch.stack(outs, dim=1).reshape(B, S, d).to(x.dtype)
+    y, s_wkv = wkv_scan(r, k, v, w, u, state.wkv)
+    y = y.reshape(B, S, d).to(x.dtype)
     y = rmsnorm(y, p["ln_x"], cfg.norm_eps) * gt
     y = y @ p["wo"]
 

@@ -5,12 +5,14 @@ communicating layers, on DTensors.
 step on DTensors over a (pod x data, model) DeviceMesh under a fake
 process group.  Left to DTensor's sharding propagation, that step
 all-gathers the vocab-sharded embedding table and logits, q, k and v at
-their reshape into heads, the SwiGLU hidden layer and the MoE slot
-slabs: another program than the JAX package's, which XLA's partitioner
-lays out as a Megatron-style step.  The helpers of ``models/layers.py``
-(``embed``, ``token_logprobs``, ``attention``, ``swiglu``, ``moe``) call
-the bodies below when they are handed DTensors; on plain tensors they
-run the ops they always ran.
+their reshape into heads, the SwiGLU hidden layer, the MoE slot slabs
+and, inside the recurrent mixers, their projections (RWKV6's train step
+once a token): another program than the JAX package's, which XLA's
+partitioner lays out as a Megatron-style step.  The helpers of
+``models/layers.py`` (``embed``, ``token_logprobs``, ``attention``,
+``swiglu``, ``moe``, ``rwkv6``, ``mamba2``, ``mamba2_step``) call the
+bodies below when they are handed DTensors; on plain tensors they run
+the ops they always ran.
 
 A body works on one rank's local tensors (``to_local``), moves data only
 by named collectives (``move``: a redistribution to a named placement;
@@ -52,6 +54,23 @@ pass.
   dispatch of the rank's tokens against the weights where they lie
   (expert-dim or within-expert shards), and one all-reduce of the
   combined tokens.
+* RWKV6 and Mamba2: head-local.  A rank takes its heads' columns of
+  each column-parallel projection (Mamba2's ``in_proj`` output moved to
+  them by one ``regroup``: z, xs, the B and C of the groups its heads
+  read, dt), its slice of each replicated per-head parameter, and runs
+  the recurrence on its share of the head-sharded state, which never
+  moves; the norms over the whole width sum their squares over the
+  model axis (``_SumShares``: forward and backward), the output
+  projections are row-parallel.  The states are written back in the
+  placements the cache structs give them.
+
+Gradients follow Megatron's rule: a body's local input has the ranks'
+shares of its gradient (``_local_act``'s partial), a reduced value that
+every rank then uses alike has the whole gradient on each (``_reduce``),
+one that each uses on its own columns gathers its shares backward
+(``_SumShares``).  ``tests/test_torch_sharded_numeric.py`` runs the
+recurrent bodies on two gloo ranks against the plain layers, gradients
+included.
 """
 from __future__ import annotations
 
@@ -253,37 +272,61 @@ def _span(a, b, c, d):
     return (lo, hi) if lo < hi else None
 
 
+def _ranges(need) -> list[tuple[int, int]]:
+    """One rank's ``need``: a (lo, hi) range or a list of them."""
+    return [need] if isinstance(need, tuple) else list(need)
+
+
 def regroup(t, held, need, M: _Mesh, where: str):
     """``t``: this rank's (..., n) slice of the columns ``held[r]`` (one
-    range a model rank) -> its (..., columns ``need[r]``).  A slice
-    where they lie within what it holds; an all-gather where every rank
-    needs every column; else one all-to-all over the model axis (each
-    rank sends each other rank the columns it holds of those it needs).
-    Recorded with the result's bytes."""
+    range a model rank) -> its columns ``need[r]`` (a range, or a list of
+    ranges whose columns come in that order).  A slice where every rank's
+    lie within what it holds; an all-gather where every rank needs every
+    column from even shares; else one all-to-all over the model axis
+    (each rank sends each other rank the columns it holds of those it
+    needs).  Recorded with the result's bytes."""
     import torch.distributed._functional_collectives as funcol
     a, b = held[M.r]
-    na, nb = need[M.r]
-    if a <= na and nb <= b:
-        return t[..., na - a:nb - a]
+    mine = _ranges(need[M.r])
+    if all(lo <= na and nb <= hi for (lo, hi), n in zip(held, need)
+           for na, nb in _ranges(n)):
+        parts = [t[..., na - a:nb - a] for na, nb in mine] or [t[..., :0]]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
     total = max(hi for _, hi in held)
     src = t.movedim(-1, 0)
-    if all(n == (0, total) for n in need) and held == _chunks(total, M.m):
+    if all(_ranges(n) == [(0, total)] for n in need) \
+            and held == _chunks(total, M.m) and total % M.m == 0:
         gather = getattr(funcol, "all_gather_single_autograd", None) \
             or funcol.all_gather_tensor_autograd
         out = gather(src.contiguous(), 0, (M.mesh, M.mi))
         kind = "all-gather"
     else:
-        send = [_span(a, b, *need[q]) for q in range(M.m)]
-        recv = [_span(*held[q], na, nb) for q in range(M.m)]
-        parts = [src[lo - a:hi - a] for lo, hi in filter(None, send)]
+        # to rank q: the columns of need[q] this rank holds, in q's order;
+        # from rank q: the pieces of this rank's ranges q holds, in order
+        send = [[s for n in _ranges(need[q]) if (s := _span(a, b, *n))]
+                for q in range(M.m)]
+        recv = [[_span(*held[q], *n) for n in mine] for q in range(M.m)]
+        parts = [src[lo - a:hi - a] for q in send for lo, hi in q]
         buf = torch.cat(parts) if parts else src[:0]
         out = funcol.all_to_all_single_autograd(
-            buf.contiguous(), [s[1] - s[0] if s else 0 for s in recv],
-            [s[1] - s[0] if s else 0 for s in send], (M.mesh, M.mi))
+            buf.contiguous(),
+            [sum(s[1] - s[0] for s in q if s) for q in recv],
+            [sum(hi - lo for lo, hi in q) for q in send], (M.mesh, M.mi))
+        if len(mine) > 1:       # the pieces to this rank's column order
+            at, offs = 0, {}
+            for q in range(M.m):
+                for i, s in enumerate(recv[q]):
+                    if s:
+                        offs[i, q] = (at, at + s[1] - s[0])
+                        at += s[1] - s[0]
+            out = torch.cat([out[offs[i, q][0]:offs[i, q][1]]
+                             for i in range(len(mine)) for q in range(M.m)
+                             if (i, q) in offs])
         kind = "all-to-all"
     out = out.movedim(0, -1)
+    to = ", ".join(f"[{na}, {nb})" for na, nb in mine)
     _note(where, f"columns [{a}, {b}) of {total} a rank",
-          f"columns [{na}, {nb})", kind, _nbytes(out))
+          f"columns {to}", kind, _nbytes(out))
     return out
 
 
@@ -577,3 +620,306 @@ def moe(cfg, p, x):
         aux = DTensor.from_local(aux, M.mesh, M.placements(R(), R()),
                                  run_check=False)
     return y, aux
+
+
+# ---------------------------------------------------------------------------
+# The recurrent mixers: head-local bodies
+# ---------------------------------------------------------------------------
+class _SumShares(torch.autograd.Function):
+    """The ranks' shares summed over the model axis, where each rank then
+    uses the sum on its own columns: an all-reduce forward, and the
+    ranks' gradient shares all-reduced backward (the sum's gradient is
+    theirs together)."""
+
+    @staticmethod
+    def forward(ctx, local, M, pd, where):
+        ctx.args = (M, pd, where)
+        return _reduce(local, M, pd, "sum", where)
+
+    @staticmethod
+    def backward(ctx, g):
+        M, pd, where = ctx.args
+        return _reduce(g, M, pd, "sum", f"{where} (backward)"), None, None, \
+            None
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity, its gradient scaled by ``s``: a value that every rank
+    computes alike, entering a body whose input gradients are the ranks'
+    shares, contributes 1/m of its gradient on each rank."""
+
+    @staticmethod
+    def forward(ctx, t, s):
+        ctx.s = s
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _cols(w, M: _Mesh, pd, partial: bool, need, where: str, dim: int = -1):
+    """The range ``need[M.r]`` of weight ``w``'s dim ``dim`` (columns, or
+    rows with -2), local: a slice of what the rank holds, or of ``w``
+    gathered over model where a rank does not hold its range
+    (recorded)."""
+    _, R, _ = _pl()
+    lo, hi = need[M.r]
+    pm = M.model(w)
+    own = [(0, w.shape[dim])] * M.m if not pm.is_shard() \
+        else _held(w, M, dim) if pm.dim % w.ndim == dim % w.ndim else None
+    to = None
+    if own is None or not all(a <= c and e <= b
+                              for (a, b), (c, e) in zip(own, need)):
+        to, own = R(), [(0, w.shape[dim])] * M.m
+    wl = _param(w, M, pd, partial, where, model_to=to)
+    return wl.narrow(dim, lo - own[M.r][0], hi - lo)
+
+
+def _rmsnorm(y, w, n: int, eps: float, M: _Mesh, pd, where: str):
+    """``layers.rmsnorm`` over ``n`` columns of which this rank holds
+    ``y``'s (and ``w``'s): the sum of squares summed over the model
+    axis."""
+    y32 = y.float()
+    ss = (y32 * y32).sum(dim=-1, keepdim=True)
+    if M.m > 1:
+        ss = _SumShares.apply(ss, M, pd, where)
+    return (y32 * torch.rsqrt(ss / n + eps) * w.float()).to(y.dtype)
+
+
+def _on(t, M: _Mesh, dim: int):
+    """``t``'s model placement, as Replicate where it shards another dim
+    than ``dim`` (such a state is gathered whole over model first)."""
+    pm = M.model(t)
+    return pm if not pm.is_shard() or pm.dim % t.ndim == dim % t.ndim \
+        else _pl()[1]()
+
+
+def _state_in(t, M: _Mesh, pd, dim: int, need, where: str):
+    """A recurrent state's range ``need[M.r]`` of dim ``dim``, local, read
+    where it lies (a slice; moved only where it lies elsewhere)."""
+    t = move(t, M.placements(pd, _on(t, M, dim)), where)
+    return regroup(t.to_local().movedim(dim, -1), _held(t, M, dim), need,
+                   M, where).movedim(-1, dim)
+
+
+def _state_out(local, like, shape, M: _Mesh, pd, dim: int, need,
+               where: str):
+    """A new state from this rank's range ``need[M.r]`` of dim ``dim``, in
+    the placements of the state ``like`` it replaces, or with no ``like``
+    where it was computed (split over model as ``need`` splits it)."""
+    from torch.distributed.tensor import DTensor
+    _, R, Sh = _pl()
+    whole = [(0, shape[dim])] * M.m
+    if like is None:
+        pm = R() if need == whole else Sh(dim)
+    else:
+        pm = _on(like, M, dim)
+        own = _chunks(shape[dim], M.m) if pm.is_shard() else whole
+        if own != need:
+            local = regroup(local.movedim(dim, -1), need, own, M,
+                            where).movedim(-1, dim)
+    out = DTensor.from_local(local, M.mesh, M.placements(pd, pm),
+                             run_check=False, shape=torch.Size(shape),
+                             stride=torch.empty(shape,
+                                                device="meta").stride())
+    return out if like is None else move(out, like.placements, where)
+
+
+def rwkv6(cfg, p, x, state):
+    """``layers.rwkv6`` on DTensors: each rank its heads (ceil(nh / m)
+    where m does not divide nh).  Token shift on the replicated input;
+    r, k, v, w and g from the columns of the rank's heads (``ww``
+    column-sharded at full width, sliced where replicated); the WKV
+    recurrence on the rank's (B, nh/m, 64, 64) state, never gathered;
+    ``ln_x``'s norm one all-reduce of the sum of squares, ``wo``
+    row-parallel: one all-reduce.  Channel-mix: ``ck`` column- and
+    ``cv`` row-parallel (one all-reduce); a replicated ``cr`` computes
+    its gate whole on every rank, a column-sharded one (full width) the
+    gate's columns, which multiply the all-reduced ``cv`` product's
+    there, as XLA's partitioner does; the gated columns are all-gathered
+    once (XLA leaves the block's output sharded over d and gathers it
+    again before each of the next layer's seven projections).  The states
+    keep their placements: ``wkv`` head-sharded, ``x_tm`` and ``x_cm``
+    replicated over model."""
+    from repro_torch.models import layers as L
+    _, R, Sh = _pl()
+    M = _Mesh(x)
+    x, pd = _activation(x, M, "rwkv6: input")
+    B, S, d = x.shape
+    hd = L.RWKV_HD
+    nh, ff, m = d // hd, cfg.d_ff, M.m
+    heads = _chunks(nh, m)
+    cols = [(a * hd, b * hd) for a, b in heads]
+    nr = heads[M.r][1] - heads[M.r][0]
+    whole = [(0, d)] * m
+    partial = m > 1
+    xl = _local_act(x, M, pd, partial)
+    Bl = xl.shape[0]
+
+    def col(name, need=cols, dim=-1):
+        return _cols(p[name], M, pd, partial, need, f"rwkv6: {name}", dim)
+    if state is None:
+        wkv = torch.zeros((Bl, nr, hd, hd), dtype=torch.float32,
+                          device=xl.device)
+        x_tm, x_cm = xl.new_zeros((Bl, d)), xl.new_zeros((Bl, d))
+    else:
+        wkv = _state_in(state.wkv, M, pd, 1, heads, "rwkv6: wkv state")
+        x_tm = _state_in(state.x_tm, M, pd, 1, whole, "rwkv6: x_tm state")
+        x_cm = _state_in(state.x_cm, M, pd, 1, whole, "rwkv6: x_cm state")
+
+    # time-mix, head-local
+    prev, new_last = L._token_shift(xl, x_tm)
+    mu = _param(p["mu"], M, pd, partial, "rwkv6: mu")
+
+    def mix(i):
+        return xl * mu[i] + prev * (1 - mu[i])
+    r = (mix(0) @ col("wr")).reshape(Bl, S, nr, hd)
+    k = (mix(1) @ col("wk")).reshape(Bl, S, nr, hd)
+    v = (mix(2) @ col("wv")).reshape(Bl, S, nr, hd)
+    wlog = -torch.exp((mix(3) @ col("ww")).float() + col("w_bias"))
+    w = torch.exp(wlog).reshape(Bl, S, nr, hd)
+    gt = L.silu(mix(4) @ col("wg"))
+    y, wkv = L.wkv_scan(r, k, v, w, col("u").reshape(nr, hd), wkv)
+    y = y.reshape(Bl, S, nr * hd).to(xl.dtype)
+    y = _rmsnorm(y, col("ln_x"), d, cfg.norm_eps, M, pd,
+                 "rwkv6: ln_x's sum of squares") * gt
+    y = _out(y @ col("wo", cols, -2), M, pd, partial,
+             "rwkv6: row-parallel wo, partial sums")
+
+    # channel-mix
+    xc = x + y
+    xcl = _local_act(xc, M, pd, partial)
+    prev_c, new_last_c = L._token_shift(xcl, x_cm)
+    mu_cm = _param(p["mu_cm"], M, pd, partial, "rwkv6: mu_cm")
+
+    def mixc(i):
+        return xcl * mu_cm[i] + prev_c * (1 - mu_cm[i])
+    fcols = _chunks(ff, m)
+    kk = torch.square(torch.relu(mixc(0) @ col("ck", fcols)))
+    kv = kk @ col("cv", fcols, -2)
+    if m == 1 or M.model(p["cr"]).is_replicate():
+        gate = _GradScale.apply(mixc(1), 1 / m)
+        out_c = _reduce(kv, M, pd, "sum",
+                        "rwkv6: row-parallel cv, partial sums") \
+            * L.sigmoid(gate @ _param(p["cr"], M, pd, False, "rwkv6: cr"))
+        out_c = _out(out_c, M, pd, False, "")
+    else:
+        from torch.distributed.tensor import DTensor
+        dcols = _chunks(d, m)
+        a, b = dcols[M.r]
+        kv = _SumShares.apply(kv, M, pd,
+                              "rwkv6: row-parallel cv, partial sums")
+        gated = kv[..., a:b] * L.sigmoid(mixc(1) @ col("cr", dcols))
+        out_c = move(DTensor.from_local(
+            gated, M.mesh, M.placements(pd, Sh(2)), run_check=False,
+            shape=x.shape, stride=x.stride()), M.placements(pd, R()),
+            "rwkv6: gated channel-mix columns to every rank")
+    new = L.RWKVState(
+        wkv=_state_out(wkv, None if state is None else state.wkv,
+                       (B, nh, hd, hd), M, pd, 1, heads, "rwkv6: wkv state"),
+        x_tm=_state_out(new_last, None if state is None else state.x_tm,
+                        (B, d), M, pd, 1, whole, "rwkv6: x_tm state"),
+        x_cm=_state_out(new_last_c, None if state is None else state.x_cm,
+                        (B, d), M, pd, 1, whole, "rwkv6: x_cm state"))
+    return y + out_c, new
+
+
+def _mamba_cols(cfg, heads) -> list[list[tuple[int, int]]]:
+    """Each rank's columns of ``in_proj``'s output for its heads [a, b):
+    z and xs of those heads, B and C of the groups they read, their dt."""
+    d = cfg.d_model
+    inner = cfg.ssm_expand * d
+    nh, ds, G = cfg.n_mamba_heads, cfg.ssm_state, cfg.ssm_groups
+    hp, rep = inner // nh, nh // G
+    o = 2 * inner
+    out = []
+    for a, b in heads:
+        ga, gb = (a // rep, (b - 1) // rep + 1) if b > a else (0, 0)
+        out.append([(a * hp, b * hp), (inner + a * hp, inner + b * hp),
+                    (o + ga * ds, o + gb * ds),
+                    (o + (G + ga) * ds, o + (G + gb) * ds),
+                    (o + 2 * G * ds + a, o + 2 * G * ds + b)])
+    return out
+
+
+def _mamba(cfg, p, x, state, chunk: int, step: bool):
+    from repro_torch.models import layers as L
+    import torch.nn.functional as F
+    M = _Mesh(x)
+    x, pd = _activation(x, M, "mamba2: input")
+    B, S, d = x.shape
+    inner = cfg.ssm_expand * d
+    nh, ds, G = cfg.n_mamba_heads, cfg.ssm_state, cfg.ssm_groups
+    hp, rep, m = inner // nh, nh // G, M.m
+    heads = _chunks(nh, m)
+    h0, h1 = heads[M.r]
+    nr = h1 - h0
+    g0 = h0 // rep if nr else 0
+    chans = [(a * hp, b * hp) for a, b in heads]
+    partial = m > 1
+    xl = _local_act(x, M, pd, partial)
+    Bl = xl.shape[0]
+
+    def col(name, need=heads, dim=-1):
+        return _cols(p[name], M, pd, partial, need, f"mamba2: {name}", dim)
+    w = p["in_proj"]
+    proj = regroup(xl @ _param(w, M, pd, partial, "mamba2: in_proj"),
+                   _held(w, M, -1), _mamba_cols(cfg, heads), M,
+                   "mamba2: in_proj's output to the head-aligned layout")
+    ng = (((h1 - 1) // rep + 1) - g0) if nr else 0
+    z, xs, Bm, Cm, dt = torch.split(
+        proj, [nr * hp, nr * hp, ng * ds, ng * ds, nr], dim=-1)
+    tail = None if state is None else _state_in(
+        state.conv, M, pd, 2, chans, "mamba2: conv tail")
+    xs, new_tail = L._causal_conv(xs, col("conv_w", chans), tail)
+    dt = F.softplus(dt.float() + col("dt_bias"))
+    A = -torch.exp(col("A_log"))
+    grp = torch.tensor([h // rep - g0 for h in range(h0, h1)],
+                       dtype=torch.long, device=xl.device)
+    if state is None:
+        h = torch.zeros((Bl, nr, hp, ds), dtype=torch.float32,
+                        device=xl.device)
+    else:
+        h = _state_in(state.h, M, pd, 1, heads, "mamba2: ssm state").float()
+    if step:
+        xh = xs.reshape(Bl, nr, hp).float()
+        Bh = Bm.reshape(Bl, ng, ds).index_select(1, grp).float()
+        Ch = Cm.reshape(Bl, ng, ds).index_select(1, grp).float()
+        y, h = L.ssd_step(xh, Bh, Ch, dt[:, 0], A, col("D"), h)
+    else:
+        xh = xs.reshape(Bl, S, nr, hp).float()
+        Bh = Bm.reshape(Bl, S, ng, ds).index_select(2, grp).float()
+        Ch = Cm.reshape(Bl, S, ng, ds).index_select(2, grp).float()
+        y, h = L.ssd_chunked(xh, Bh, Ch, dt, A, col("D"), h, chunk)
+    y = y.reshape(Bl, S, nr * hp).to(xl.dtype) * L.silu(z)
+    y = _rmsnorm(y, col("gate_norm", chans), inner, cfg.norm_eps, M, pd,
+                 "mamba2: gate_norm's sum of squares")
+    out = _out(y @ col("out_proj", chans, -2), M, pd, partial,
+               "mamba2: row-parallel out_proj, partial sums")
+    new = L.MambaState(
+        h=_state_out(h, None if state is None else state.h,
+                     (B, nh, hp, ds), M, pd, 1, heads, "mamba2: ssm state"),
+        conv=_state_out(new_tail, None if state is None else state.conv,
+                        (B, L.CONV_K - 1, inner), M, pd, 2, chans,
+                        "mamba2: conv tail"))
+    return out, new
+
+
+def mamba2(cfg, p, x, state, chunk: int):
+    """``layers.mamba2`` on DTensors: each rank its heads (ceil(nh / m)
+    where m does not divide nh).  ``in_proj`` column-parallel, its output
+    moved by one ``regroup`` to the rank's z and xs columns, the B and C
+    of the groups its heads read and their dt; from there on head-local:
+    the causal conv over its channels (and its share of the conv tail,
+    which lies there), softplus, the chunked SSD on its (B, nh/m, hp, ds)
+    state; ``gate_norm``'s norm one all-reduce of the sum of squares,
+    ``out_proj`` row-parallel: one all-reduce.  The states keep their
+    placements."""
+    return _mamba(cfg, p, x, state, chunk, step=False)
+
+
+def mamba2_step(cfg, p, x, state):
+    """``layers.mamba2_step`` on DTensors: ``mamba2``'s body with one
+    SSD step."""
+    return _mamba(cfg, p, x, state, 0, step=True)

@@ -188,13 +188,19 @@ def test_flop_ratio_to_jax_cost(jax_records, port_records, arch):
 
 
 @pytest.mark.parametrize("arch", DEPTHS)
-def test_collectives_counted_on_the_joined_mesh(port_records, arch):
+def test_collectives_counted_on_the_joined_mesh(jax_records, port_records,
+                                                arch):
+    """The pass ran on the (pod x data, model) mesh; the port all-gathers
+    in decode exactly where XLA does (Qwen3-4B's and Zamba2-7B's
+    attention; RWKV6-7B moves only all-reduces)."""
     rec = port_records[arch]
     assert rec["collectives"].startswith("DTensor pass on a (4, 2)")
     coll, counts = rec["collective_bytes"], rec["collective_counts"]
     assert set(coll) == set(DR.COLLECTIVE_OPS) | {"total"}
     assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
-    assert coll["all-gather"] > 0 and counts["all-gather"] > 0
+    gathers = jax_records[arch]["collective_bytes"].get("all-gather", 0) > 0
+    assert (coll["all-gather"] > 0) == gathers == (counts["all-gather"] > 0)
+    assert coll["all-reduce"] > 0 and counts["all-reduce"] > 0
     assert coll["collective-permute"] == 0
     assert rec["moe_ep_in_counts"] is False
 

@@ -3,9 +3,12 @@
 JAX package's dry-run and against counts made by hand.
 
 JAX's ``lower_cell`` runs once, in one subprocess with 8 host devices,
-on a (2, 2, 2) mesh with ``AxisType.Auto`` axes, for reduced Qwen3-4B
-and Moonshot (4 layers) at S 64, batch 8, in decode, prefill and train;
-the port lowers the same cells on a meta mesh of that shape.
+on a (2, 2, 2) mesh with ``AxisType.Auto`` axes, for reduced Qwen3-4B,
+Moonshot, RWKV6-7B and Zamba2-7B (4 layers) at S 64, batch 8, in
+decode, prefill and train; the port lowers the same cells on a meta
+mesh of that shape.  The module's fixtures take about 210 s on 8 CPU
+cores (the JAX subprocess's twelve cells and the port's); the
+S-exactness case of RWKV6 train another ~110 s.
 
 The port runs these cells at fp32.  XLA's CPU backend carries every
 bf16 collective as f32 (its HLO converts each operand first, and
@@ -17,9 +20,15 @@ bands were set:
 * collective totals, port / JAX: 1.0270 (qwen3-4b decode), 0.9722
   (prefill), 0.8614 (train), 1.0001 (moonshot decode), 0.9962
   (prefill), 1.1532 (train).  Before the sharded bodies they were 56.8,
-  2.22, 1.53, 0.19, 1.73 and 1.94.  Each is held to +-10% of its
-  measurement, and all to 0.5-2.0;
-* temp, port / JAX: 0.0365, 0.0865, 1.1775, 0.2742, 0.3589, 0.5386.
+  2.22, 1.53, 0.19, 1.73 and 1.94.  RWKV6-7B 1.0000, 1.0000, 0.9553
+  and Zamba2-7B 1.0071, 0.9927, 0.8135 (decode, prefill, train): the
+  same all-reduces as XLA's where RWKV6 does not differentiate, and
+  Zamba2's in_proj regroup one all-to-all of XLA's collective-permute
+  bytes (17,472 B in decode); before the RWKV6 and Mamba2 bodies they
+  were 3.55, 3.55, 9.15, 9.87, 3.63 and 2.24.  Each is held to +-10% of
+  its measurement, and all to 0.5-2.0;
+* temp, port / JAX: 0.0365, 0.0865, 1.1775, 0.2742, 0.3589, 0.5386;
+  RWKV6-7B 0.0585, 0.2620, 0.7082, Zamba2-7B 0.0341, 0.2124, 0.7278.
   XLA's temp holds its f32 copies of the bf16 arguments (its CPU dots
   run in f32) and its own buffer plan; the port's is the eager step's
   peak beyond its arguments and outputs.  The two agree where
@@ -48,7 +57,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import sharded  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
-ARCHS = ["qwen3-4b", "moonshot-v1-16b-a3b"]
+ARCHS = ["qwen3-4b", "moonshot-v1-16b-a3b", "rwkv6-7b", "zamba2-7b"]
 MODES = ["decode", "prefill", "train"]
 CELLS = [(a, m) for a in ARCHS for m in MODES]
 COLL_RATIO = {("qwen3-4b", "decode"): 1.0270,
@@ -56,13 +65,25 @@ COLL_RATIO = {("qwen3-4b", "decode"): 1.0270,
               ("qwen3-4b", "train"): 0.8614,
               ("moonshot-v1-16b-a3b", "decode"): 1.0001,
               ("moonshot-v1-16b-a3b", "prefill"): 0.9962,
-              ("moonshot-v1-16b-a3b", "train"): 1.1532}
+              ("moonshot-v1-16b-a3b", "train"): 1.1532,
+              ("rwkv6-7b", "decode"): 1.0000,
+              ("rwkv6-7b", "prefill"): 1.0000,
+              ("rwkv6-7b", "train"): 0.9553,
+              ("zamba2-7b", "decode"): 1.0071,
+              ("zamba2-7b", "prefill"): 0.9927,
+              ("zamba2-7b", "train"): 0.8135}
 TEMP_RATIO = {("qwen3-4b", "decode"): 0.0365,
               ("qwen3-4b", "prefill"): 0.0865,
               ("qwen3-4b", "train"): 1.1775,
               ("moonshot-v1-16b-a3b", "decode"): 0.2742,
               ("moonshot-v1-16b-a3b", "prefill"): 0.3589,
-              ("moonshot-v1-16b-a3b", "train"): 0.5386}
+              ("moonshot-v1-16b-a3b", "train"): 0.5386,
+              ("rwkv6-7b", "decode"): 0.0585,
+              ("rwkv6-7b", "prefill"): 0.2620,
+              ("rwkv6-7b", "train"): 0.7082,
+              ("zamba2-7b", "decode"): 0.0341,
+              ("zamba2-7b", "prefill"): 0.2124,
+              ("zamba2-7b", "train"): 0.7278}
 BAND = 0.10
 
 JAX_SCRIPT = textwrap.dedent("""
@@ -175,12 +196,21 @@ def test_moonshot_dispatches_expert_parallel_in_every_mode(port_records):
 
 def _local_elems(cfg, mode, m=2, dn=4, S=64, B=8):
     """Elements a device holds of the embedding table, the logits and a
-    layer's K cache on the (pod x data, model) = (4, 2) mesh."""
+    layer's K cache on the (pod x data, model) = (4, 2) mesh; for the
+    recurrent mixers, of a layer's recurrent state and of one token's
+    activation of the local batch."""
     Bl, V = B // dn, cfg.padded_vocab
     out = {"table": V // m * cfg.d_model,
            "logits": Bl * (1 if mode == "decode" else S) * V // m}
-    if mode != "train":
+    if cfg.pattern == "rwkv":
+        out["state"] = Bl * cfg.d_model // L.RWKV_HD * L.RWKV_HD ** 2 // m
+        out["token"] = Bl * cfg.d_model
+    elif mode != "train":
         out["cache"] = Bl * S * cfg.num_kv_heads * cfg.hd // m
+    if cfg.pattern == "mamba":
+        inner = cfg.ssm_expand * cfg.d_model
+        out["state"] = Bl * inner * cfg.ssm_state // m
+        out["token"] = Bl * cfg.d_model
     return out
 
 
@@ -189,12 +219,19 @@ def test_no_all_gather_of_table_logits_or_cache(port_records, cell):
     """No recorded move all-gathers the table, the logits, a cache or a
     gradient, and no all-gather the counter saw returns as many
     elements as a device's shard of the table, the logits or a cache
-    (gathering one would)."""
+    (gathering one would).  The RWKV6 and Mamba2 bodies move no
+    recurrent state (it is read and written where it lies) and gather
+    nothing, and no all-gather returns a layer's recurrent state or one
+    token's activation (DTensor's own propagation gathered the train
+    step's WKV terms once a token)."""
     rec, passes = port_records[cell]
     for r in rec["redistributions"]:
         if r["where"].startswith(("embedding", "loss", "gradient")) \
                 or "cache" in r["where"]:
             assert "all-gather" not in r["kind"], r
+        if r["where"].startswith(("rwkv6", "mamba2")):
+            assert "all-gather" not in r["kind"], r
+            assert "state" not in r["where"] and "tail" not in r["where"], r
     least = min(_local_elems(reduced(cell[0]), cell[1]).values())
     gathers = [shape for p in passes for (kind, shape, _), n in p.items()
                if kind == "all-gather"]
@@ -262,15 +299,144 @@ def _plain_moe(cfg, p, x):
     return y.reshape(B, S, d), E * torch.sum(me * ce)
 
 
+def _plain_mamba2(cfg, p, x, state=None, chunk=64):
+    """``layers.mamba2`` as it was written before ``ssd_chunked`` was
+    factored out of it, op for op."""
+    import torch.nn.functional as F
+    B, S, d = x.shape
+    inner = cfg.ssm_expand * d
+    nh, ds, G = cfg.n_mamba_heads, cfg.ssm_state, cfg.ssm_groups
+    hp = inner // nh
+    z, xs, Bm, Cm, dt = L._mamba_split(cfg, x @ p["in_proj"])
+    xs, new_tail = L._causal_conv(
+        xs, p["conv_w"], None if state is None else state.conv)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = xs.reshape(B, S, nh, hp).float()
+    rep = nh // G
+    Bh = Bm.reshape(B, S, G, ds).repeat_interleave(rep, dim=2).float()
+    Ch = Cm.reshape(B, S, G, ds).repeat_interleave(rep, dim=2).float()
+    la = dt * A[None, None, :]
+    nC = -(-S // chunk)
+    pad = nC * chunk - S
+
+    def padc(t):
+        return F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad])
+    xh, Bh, Ch = padc(xh), padc(Bh), padc(Ch)
+    la_p, dt_p = padc(la), padc(dt)
+    xh = xh.reshape(B, nC, chunk, nh, hp)
+    Bh = Bh.reshape(B, nC, chunk, nh, ds)
+    Ch = Ch.reshape(B, nC, chunk, nh, ds)
+    la_c = la_p.reshape(B, nC, chunk, nh)
+    dt_c = dt_p.reshape(B, nC, chunk, nh)
+    cs = torch.cumsum(la_c, dim=2)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    decay = torch.where(tri[None, None, :, :, None], torch.exp(seg),
+                        torch.zeros_like(seg))
+    cb = torch.einsum("bcthn,bcuhn->bctuh", Ch, Bh)
+    att = cb * decay
+    y_intra = torch.einsum("bctuh,bcuh,bcuhp->bcthp", att, dt_c, xh)
+    chunk_decay = torch.exp(cs[:, :, -1, :])
+    w_u = torch.exp(cs[:, :, -1:, :] - cs) * dt_c
+    chunk_state = torch.einsum("bcuh,bcuhn,bcuhp->bchpn", w_u, Bh, xh)
+    h = torch.zeros((B, nh, hp, ds), dtype=torch.float32) \
+        if state is None else state.h.float()
+    y_inter = []
+    for c in range(nC):
+        y_inter.append(torch.einsum("bthn,bhpn,bth->bthp", Ch[:, c], h,
+                                    torch.exp(cs[:, c])))
+        h = h * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+    y_inter = torch.stack(y_inter, dim=1)
+    y = (y_intra + y_inter).reshape(B, nC * chunk, nh, hp)[:, :S]
+    y = y + xh.reshape(B, nC * chunk, nh, hp)[:, :S] \
+        * p["D"][None, None, :, None]
+    y = y.reshape(B, S, inner).to(x.dtype)
+    y = y * L.silu(z)
+    y = L.rmsnorm(y, p["gate_norm"], cfg.norm_eps)
+    return y @ p["out_proj"], L.MambaState(h=h.float(), conv=new_tail)
+
+
+def _plain_mamba2_step(cfg, p, x, state):
+    """``layers.mamba2_step`` before ``ssd_step``, op for op."""
+    import torch.nn.functional as F
+    B, S, d = x.shape
+    inner = cfg.ssm_expand * d
+    nh, ds, G = cfg.n_mamba_heads, cfg.ssm_state, cfg.ssm_groups
+    hp = inner // nh
+    z, xs, Bm, Cm, dt = L._mamba_split(cfg, x @ p["in_proj"])
+    xs, new_tail = L._causal_conv(xs, p["conv_w"], state.conv)
+    dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt * A[None, :])
+    xh = xs.reshape(B, nh, hp).float()
+    rep = nh // G
+    Bh = Bm.reshape(B, G, ds).repeat_interleave(rep, dim=1).float()
+    Ch = Cm.reshape(B, G, ds).repeat_interleave(rep, dim=1).float()
+    h = state.h * a[:, :, None, None] \
+        + torch.einsum("bh,bhp,bhn->bhpn", dt, xh, Bh)
+    y = torch.einsum("bhn,bhpn->bhp", Ch, h) + xh * p["D"][None, :, None]
+    y = y.reshape(B, 1, inner).to(x.dtype)
+    y = y * L.silu(z)
+    y = L.rmsnorm(y, p["gate_norm"], cfg.norm_eps)
+    return y @ p["out_proj"], L.MambaState(h=h, conv=new_tail)
+
+
+def _plain_rwkv6(cfg, p, x, state=None):
+    """``layers.rwkv6`` before ``wkv_scan``, op for op."""
+    B, S, d = x.shape
+    nh, hd = d // L.RWKV_HD, L.RWKV_HD
+    if state is None:
+        state = L.RWKVState(
+            wkv=torch.zeros((B, nh, hd, hd), dtype=torch.float32),
+            x_tm=x.new_zeros((B, d)), x_cm=x.new_zeros((B, d)))
+    prev, new_last = L._token_shift(x, state.x_tm)
+
+    def mix(i):
+        return x * p["mu"][i] + prev * (1 - p["mu"][i])
+    r = (mix(0) @ p["wr"]).reshape(B, S, nh, hd)
+    k = (mix(1) @ p["wk"]).reshape(B, S, nh, hd)
+    v = (mix(2) @ p["wv"]).reshape(B, S, nh, hd)
+    wlog = -torch.exp((mix(3) @ p["ww"]).float() + p["w_bias"])
+    w = torch.exp(wlog).reshape(B, S, nh, hd)
+    gt = L.silu(mix(4) @ p["wg"])
+    u = p["u"].reshape(nh, hd)
+    s_wkv = state.wkv
+    outs = []
+    for t in range(S):
+        s_wkv, out = L.rwkv6_step(s_wkv, r[:, t], k[:, t], v[:, t],
+                                  w[:, t], u)
+        outs.append(out)
+    y = torch.stack(outs, dim=1).reshape(B, S, d).to(x.dtype)
+    y = L.rmsnorm(y, p["ln_x"], cfg.norm_eps) * gt
+    y = y @ p["wo"]
+    prev_c, new_last_c = L._token_shift(x + y, state.x_cm)
+    xc = x + y
+
+    def mixc(i):
+        return xc * p["mu_cm"][i] + prev_c * (1 - p["mu_cm"][i])
+    kk = torch.square(torch.relu(mixc(0) @ p["ck"]))
+    out_c = (kk @ p["cv"]) * L.sigmoid(mixc(1) @ p["cr"])
+    return y + out_c, L.RWKVState(wkv=s_wkv, x_tm=new_last, x_cm=new_last_c)
+
+
+def _bitwise(got, want) -> bool:
+    from repro_torch.tree import leaves
+    a, b = leaves(got), leaves(want)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_helpers_on_plain_tensors_run_the_ops_they_ran(monkeypatch, dtype):
     """On plain CPU tensors each helper gives what its ops gave before,
     bitwise, and never reaches a sharded body."""
     def refuse(*args, **kwargs):
         raise AssertionError("a sharded body ran on plain tensors")
-    for name in ("embed", "token_logprobs", "attention", "swiglu", "moe"):
+    for name in ("embed", "token_logprobs", "attention", "swiglu", "moe",
+                 "rwkv6", "mamba2", "mamba2_step"):
         monkeypatch.setattr(sharded, name, refuse)
     from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
     cfg = reduced("moonshot-v1-16b-a3b")
     params = T.init_params(cfg, 0, dtype, device="cpu")
     blk = T._layer(params["blocks"], 0)
@@ -293,6 +459,26 @@ def test_helpers_on_plain_tensors_run_the_ops_they_ran(monkeypatch, dtype):
     for c in (cache, None):
         y, _ = L.attention(cfg, blk["attn"], x, positions=pos, cache=c)
         assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    for arch in ("rwkv6-7b", "zamba2-7b"):
+        cfg = reduced(arch)
+        blk = T._layer(T.init_params(cfg, 0, dtype, device="cpu")["blocks"],
+                       0)
+        x = torch.randn(2, 10, cfg.d_model, generator=g).to(dtype)
+        st = T._layer(tree_map(
+            lambda t: torch.randn(t.shape, generator=g).to(t.dtype),
+            T.init_cache(cfg, 2, 16, dtype, device="cpu").rwkv
+            if arch == "rwkv6-7b"
+            else T.init_cache(cfg, 2, 16, dtype, device="cpu").ssm), 0)
+        if arch == "rwkv6-7b":
+            for s in (None, st):
+                assert _bitwise(L.rwkv6(cfg, blk["rwkv"], x, s),
+                                _plain_rwkv6(cfg, blk["rwkv"], x, s))
+            continue
+        for s in (None, st):
+            assert _bitwise(L.mamba2(cfg, blk["mamba"], x, s, chunk=4),
+                            _plain_mamba2(cfg, blk["mamba"], x, s, chunk=4))
+        assert _bitwise(L.mamba2_step(cfg, blk["mamba"], x[:, :1], st),
+                        _plain_mamba2_step(cfg, blk["mamba"], x[:, :1], st))
 
 
 def test_memory_counter_is_exact_on_a_toy_step():
@@ -335,6 +521,38 @@ def test_rwkv_sequence_extrapolation_is_exact(monkeypatch):
     assert got["collective_counts"] == want["collective_counts"]
     assert got["collective_bytes"]["total"] > 0
     assert all(isinstance(got["memory"][k], int) for k in DR.MEMORY_KEYS)
+
+
+def test_rwkv_train_collectives_are_affine_in_s(monkeypatch):
+    """RWKV6's train step on the (2, 2, 2) mesh: the fit from S 64 and
+    128 equals the direct count at S 256 -- flops, bytes, collectives and
+    their counts.  The head-local body gathers no token, so nothing in
+    the step grows faster than S (DTensor's own propagation all-gathered
+    an fp32 tensor sharded over S once a token: S^2).  The direct count's
+    variants exceed ``COLLECTIVE_OP_BUDGET``, raised here for it."""
+    cfg, shape = reduced("rwkv6-7b"), InputShape("t", 256, 8, "train")
+    got = DR.lower_cell(cfg, shape, _mesh(), "m", dtype=torch.float32)
+    assert got["extrapolation"]["seq_len"] == list(DR.SEQ_POINTS) \
+        == [64, 128]
+    monkeypatch.setattr(DR, "SEQ_POINTS", (256, 512))
+    monkeypatch.setattr(DR, "COLLECTIVE_OP_BUDGET", 10 ** 6)
+    monkeypatch.setattr(DR, "_collectives", _no_real_pass(DR._collectives))
+    want = DR.lower_cell(cfg, shape, _mesh(), "m", dtype=torch.float32)
+    assert want["extrapolation"]["seq_len"] is None
+    assert got["cost"] == want["cost"]
+    assert got["collective_bytes"] == want["collective_bytes"]
+    assert got["collective_counts"] == want["collective_counts"]
+    assert got["collective_bytes"]["all-gather"] == 0
+    assert got["collective_bytes"]["total"] > 0
+
+
+def _no_real_pass(collectives):
+    """``dryrun._collectives`` without its pass at the real depth, which
+    the extrapolated counts compared here do not read."""
+    def run(cfg, shape, mesh, dtype, plan, variants, real, points):
+        return collectives(cfg, shape, mesh, dtype, plan, variants,
+                           {**real, "ops": float("inf")}, points)
+    return run
 
 
 @pytest.mark.parametrize("heads", [(4, 2), (6, 2)], ids=["h4kv2", "h6kv2"])
