@@ -98,7 +98,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    forward only) to the same weights on the CPU to 1e-3 of a row's scale,
    and the MoE prefill is bitwise the same twice; no kernel of the port
    launches on this path (its mixers are plain torch, as the JAX
-   package's are plain jnp);
+   package's are plain jnp).  The energy meter (phase 14's) reads the
+   served pass (the 8 prompts served again, as often as the meter's 2 s
+   window needs) and the decode steps alone (8 from one prefilled cache,
+   as often): joules a token, a pass and a step, total and above phase
+   14's idle floor, and the mean watts;
 11. the training path, after phase 6's timing, all in strict fp32:
    Qwen3-4B at full width and depth (4.42 B parameters) trained for 4
    steps by ``repro_torch.training.train_loop.train`` at the JAX
@@ -106,8 +110,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``SyntheticLM``): every loss and grad norm finite, the step-0 loss
    below ln(padded vocab) + 2, every leaf moved; prints ms a step over
    steps 1-3, tokens/s, the optimizer's ms a step and the peak memory
-   beside 16 B a parameter.  Then Qwen3-4B (2 layers), RWKV6-7B (2),
-   Zamba2-7B (6), Granite-MoE-3B (2) and HuBERT-XLarge (2) at full
+   beside 16 B a parameter, and the meter's joules a step and a token,
+   total and above the idle floor, and the mean watts, over repeats of
+   one warm step after step 3 (its batch, going on from its params and
+   optimizer state) until the window lasts the meter's 2 s.  Then
+   Qwen3-4B (2 layers), RWKV6-7B (2), Zamba2-7B (6), Granite-MoE-3B (2) and HuBERT-XLarge (2) at full
    width, batch 2 x 16 tokens, 2 steps on the card and on the CPU from
    the same weights: losses and grad norms within 1e-4 relative, step 0's
    grads within 1e-4 of each leaf's largest |value|, a second card run
@@ -120,7 +127,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    seeded tokens) split by ``launch.smartsplit_exec.two_stage_apply``
    with both pods on the one card, each on its own CUDA stream, at the
    planner's cut (``smartsplit`` of the prefill profile on
-   ``TPU_EDGE_CLOUD``, as ``serve --plan-split`` plans) and at l1 1, 18
+   ``H100_EDGE_CLOUD``, as ``serve --plan-split`` plans) and at l1 1, 18
    and 35, on the follow, bf16 and int8 wires, un-pipelined and over 4
    microbatches, with the launch counts set to 0 just before and read
    just after: the follow split equals the monolithic ``forward``
@@ -150,7 +157,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    real depth's, and each roofline bound (``analysis.roofline``, the
    H100's data-sheet rates) is printed beside the step time phase 11
    measured and phase 10's decode step alone, and the train flops beside
-   ``train_arithmetic``'s; (c) the dry-run's memory counter
+   ``train_arithmetic``'s, and each record's ``energy_j`` (the H100's
+   constants of ``core/hardware.py``) beside the joules above idle the
+   meter read a step in phases 11 and 10, as a ratio (printed, not
+   held: the record's bytes are unfused eager traffic, a bound); (c) the
+   dry-run's memory counter
    (``analysis.hlo.LiveBytes``, a one-device mesh, fp32) against the
    card's allocator: Qwen3-4B's train cell, arguments + output + temp -
    alias, against phase 11's peak less what earlier phases held, and
@@ -163,7 +174,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    application of the shared block), batch 2 x 512, arguments + output +
    temp - alias against the peak less what was allocated before its
    weights; each within ``MEMORY_BAND`` (5% + 256 MiB: cuBLAS's
-   workspace and the allocator's rounding).
+   workspace and the allocator's rounding);
+14. the card's energy constants, after phase 9 and before phase 10 (whose
+   idle floor phases 10 and 11 subtract): ``analysis.energy.calibrate``
+   reads NVML's energy counter over three 2 s windows each of the idle
+   floor, an 8192^3 fp32 GEMM (strict fp32), a bf16 one and a 4 GiB
+   device-to-device copy, in turns; each constant ``core/hardware.py``
+   states (idle W, pJ/FLOP fp32 and bf16, pJ/HBM byte) must lie within
+   ``ENERGY_BAND`` of its measurement.  Printed with the card's name and
+   power limit and each constant's spread over its windows.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without ``src/repro_torch`` beside it, the script exits
@@ -184,8 +203,8 @@ sys.path.insert(0, SRC)
 try:
     # Published H100 SXM peaks (NVIDIA data sheet, dense), from their one
     # source in the port (a module of plain constants): fp32 on the CUDA
-    # cores, bf16 on the tensor cores, HBM3 bandwidth.
-    from repro_torch.analysis.roofline import H100_HBM_BW, H100_PEAK_FLOPS
+    # cores, bf16 and TF32 on the tensor cores, HBM3 bandwidth.
+    from repro_torch.core.hardware import H100_HBM_BW, H100_PEAK_FLOPS
 except ImportError:
     sys.exit(f"chip_smoke: no src/repro_torch beside {__file__}: run it "
              f"from a checkout of the repository")
@@ -194,16 +213,23 @@ PEAK_BYTES = H100_HBM_BW
 # phase 13c: |measured - predicted| may be this share of the prediction
 # plus this many bytes (cuBLAS's workspace, the allocator's rounding)
 MEMORY_BAND = (0.05, 256 * 2**20)
+# phase 14: |measured - stated| may be this share of each energy constant
+# ``core/hardware.py`` states: twice the spread, (max - min) / median, of
+# the seven whole calibrations the constants are the median of, at least
+# 10% and at most 25% (spread: idle 22%, fp32 3.0%, bf16 3.8%, HBM 13%)
+ENERGY_BAND = {"idle_w": 0.25, "pj_per_flop_fp32": 0.10,
+               "pj_per_flop_bf16": 0.10, "pj_per_hbm_byte": 0.25}
 # The rate of the arithmetic the dense conv kernel runs: fp32 storage as
 # three TF32 tensor-core passes (495 TFLOP/s each), bf16 as one bf16 pass.
-CONV_PEAK = {"fp32": 495e12 / 3, "bf16": 989e12}
+CONV_PEAK = {"fp32": PEAK_FLOPS["tf32"] / 3, "bf16": PEAK_FLOPS["bf16"]}
 # The same for the sequence kernels: flash attention as the conv (its
 # bf16 P V runs a second bf16 pass for P's low half, which the bound
 # does not count: the function's operations at the bf16 rate); the SSD
 # runs TF32 passes in both storage dtypes (up to three, fewer where a
 # bf16 operand is exact); WKV runs fp32 on the CUDA cores in both.
 MIXER_PEAK = {"flash_attention": CONV_PEAK,
-              "mamba2_ssd": {"fp32": 495e12 / 3, "bf16": 495e12 / 3},
+              "mamba2_ssd": {"fp32": PEAK_FLOPS["tf32"] / 3,
+                             "bf16": PEAK_FLOPS["tf32"] / 3},
               "rwkv6_wkv": {"fp32": PEAK_FLOPS["fp32"],
                             "bf16": PEAK_FLOPS["fp32"]}}
 TENSOR_CORE_MIXERS = ("flash_attention", "mamba2_ssd")
@@ -1252,6 +1278,65 @@ def phase_stream(torch, cnn, serve, launches, quant, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the card's energy constants
+# ---------------------------------------------------------------------------
+def phase_energy(energy, hardware, dev) -> tuple:
+    """Phase 14 (after phase 9, before phase 10): ``energy.calibrate`` on
+    the card -- three windows each of the idle floor, an fp32 and a bf16
+    GEMM and a device-to-device copy -- and each energy constant
+    ``core/hardware.py`` states held to its measurement within
+    ``ENERGY_BAND``.  Returns the meter and this run's idle floor (W),
+    which phases 10 and 11 subtract, and the phase's rows."""
+    t0 = time.perf_counter()
+    cal = energy.calibrate(dev)
+    stated = {"idle_w": hardware.H100_IDLE_W,
+              "pj_per_flop_fp32": hardware.H100_PJ_PER_FLOP["fp32"],
+              "pj_per_flop_bf16": hardware.H100_PJ_PER_FLOP["bf16"],
+              "pj_per_hbm_byte": hardware.H100_PJ_PER_HBM_BYTE}
+    rows = {}
+    for name, want in stated.items():
+        got = cal["constants"][name]
+        rows[name] = dict(stated=want, measured=got["median"],
+                          off=got["median"] / want - 1,
+                          band=ENERGY_BAND[name], spread=got["spread"],
+                          windows=got["values"])
+    seconds = time.perf_counter() - t0
+    print(f"phase 14: the card's energy constants ({card_line()}; NVML: "
+          f"{cal['card']}, enforced limit {cal['power_limit_w']:.0f} W), "
+          f"measured against core/hardware.py in {seconds:.1f} s: " + "; ".join(
+              f"{k} {r['measured']:.4g} against {r['stated']:.4g} "
+              f"({100 * r['off']:+.1f}%, band {100 * r['band']:.0f}%; "
+              f"spread {r['spread']:.3f} over {len(r['windows'])} windows)"
+              for k, r in rows.items()))
+    for name, r in rows.items():
+        check(abs(r["off"]) <= r["band"], f"phase 14 {name}: measured "
+              f"{r['measured']:.4g}, {100 * r['off']:+.1f}% from the "
+              f"{r['stated']:.4g} core/hardware.py states (band "
+              f"{100 * r['band']:.0f}%)")
+    meter = energy.EnergyMeter(dev)
+    idle_w = cal["constants"]["idle_w"]["median"]
+    return meter, idle_w, dict(rows=rows, calibration=cal, seconds=seconds)
+
+
+def energy_row(window, idle_w: float, units: dict) -> dict:
+    """A window's joules, total and above the idle floor, a unit (``units``:
+    name -> count in the window) and its mean watts."""
+    above = window.above(idle_w)
+    row = dict(joules=window.joules, seconds=window.seconds,
+               calls=window.calls, watts=window.watts, idle_w=idle_w,
+               joules_above_idle=above)
+    for unit, n in units.items():
+        row[f"joules_per_{unit}"] = window.joules / n
+        row[f"joules_above_idle_per_{unit}"] = above / n
+    return row
+
+
+def energy_text(row: dict, unit: str) -> str:
+    return (f"{row[f'joules_per_{unit}']:.4g} J a {unit} "
+            f"({row[f'joules_above_idle_per_{unit}']:.4g} above idle)")
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: the transformer decode path
 # ---------------------------------------------------------------------------
 DECODE_TOL = 1e-3
@@ -1276,7 +1361,7 @@ def tree_numel(tree) -> int:
     return tree.numel()
 
 
-def phase_decode(torch, configs, T, Engine, launches, dev):
+def phase_decode(torch, configs, T, Engine, launches, energy, dev):
     """(a) Qwen3-4B at full width and depth, fp32 weights from a seeded
     generator on the card, serving 8 greedy requests of 8-24 prompt
     tokens, 8 new tokens each, through ``serving.engine.Engine`` (timed
@@ -1286,7 +1371,11 @@ def phase_decode(torch, configs, T, Engine, launches, dev):
     each other block kind at full width and a cut depth, its prefill
     logits and one decode step held against the same weights on the CPU,
     and the MoE prefill run twice on the card, bitwise.  No kernel of the
-    port runs on this path: every launch count stays 0."""
+    port runs on this path: every launch count stays 0.  ``energy`` is
+    phase 14's (meter, idle W): the meter reads the served pass (the 8
+    prompts served again on a fresh engine, as often as the meter's
+    window needs) and the decode steps alone (8 steps from the same
+    prefilled cache, as often)."""
     import dataclasses
 
     import numpy as np
@@ -1334,9 +1423,10 @@ def phase_decode(torch, configs, T, Engine, launches, dev):
     # bound, which has no prefill, is held to
     dtok = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (4, 17)), device=dev)
-    _, dcache, _ = T.forward(cfg, params, {"tokens": dtok[:, :16]},
-                             mode="prefill", cache=T.init_cache(
-                                 cfg, 4, 128, torch.float32, dev))
+    _, dcache0, _ = T.forward(cfg, params, {"tokens": dtok[:, :16]},
+                              mode="prefill", cache=T.init_cache(
+                                  cfg, 4, 128, torch.float32, dev))
+    dcache = dcache0
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     for i in range(2 + DECODE_STEPS_TIMED):
         if i == 2:
@@ -1350,19 +1440,41 @@ def phase_decode(torch, configs, T, Engine, launches, dev):
     # ms a pass does not
     batches = int(eng.stats["batches"])
     passes = batches * 8
+    meter, idle_w = energy
+
+    def decode_steps():
+        c = dcache0
+        for _ in range(DECODE_STEPS_TIMED):
+            _, c = T.decode_step(cfg, params, dtok[:, 16:], c)
+
+    served = meter.measure(serve_prompts)
+    alone = meter.measure(decode_steps)
     qwen = dict(config="qwen3-4b", params=n_params, requests=len(reqs),
                 batches=batches, passes=passes, tokens=toks, seconds=dt,
                 tokens_per_s=toks / dt, ms_per_pass=1e3 * dt / passes,
                 decode_step_ms=decode_step_ms,
                 decode_vs_prefill_rel_err=rel,
-                peak_bytes=torch.cuda.max_memory_allocated(dev))
+                peak_bytes=torch.cuda.max_memory_allocated(dev),
+                energy_served=energy_row(served, idle_w, {
+                    "token": toks * served.calls,
+                    "pass": passes * served.calls}),
+                energy_decode_steps=energy_row(alone, idle_w, {
+                    "step": DECODE_STEPS_TIMED * alone.calls}))
     print(f"phase 10: qwen3-4b full width and depth ({n_params / 1e9:.2f} B "
           f"parameters, fp32): {len(reqs)} requests, {toks} tokens in "
           f"{batches} batches, {dt:.2f} s, {toks / dt:.1f} tokens/s, "
           f"{1e3 * dt / passes:.1f} ms a pass (host clock, {card_line()}), "
           f"{decode_step_ms:.2f} ms a decode step alone (batch 4, CUDA "
           f"events); decode == prefill to {rel:.3g} of scale")
-    del params, eng, full, cache, step, dcache
+    es, ed = qwen["energy_served"], qwen["energy_decode_steps"]
+    print(f"phase 10: energy (NVML, {card_line()}, idle floor "
+          f"{idle_w:.1f} W): served {served.calls} x 8 requests in "
+          f"{es['seconds']:.2f} s at {es['watts']:.1f} W, "
+          f"{energy_text(es, 'token')}, {energy_text(es, 'pass')}; "
+          f"decode steps alone ({alone.calls} x {DECODE_STEPS_TIMED} steps "
+          f"in {ed['seconds']:.2f} s at {ed['watts']:.1f} W) "
+          f"{energy_text(ed, 'step')}")
+    del params, eng, full, cache, step, dcache, dcache0
     torch.cuda.empty_cache()
 
     rows = [qwen]
@@ -1437,13 +1549,14 @@ SPLIT_CODEC_SHAPES = [(512, 2560, 1), (128, 2560, 1)]
 
 def split_cuts(configs, core, profiles):
     """The planner's l1 for Qwen3-4B's prefill profile at seq 128, batch 4
-    (``smartsplit(prof, TPU_EDGE_CLOUD)``, as ``serve --plan-split``
-    plans), l1 = 1 and 35 (one block on either side) and 18 (halves)."""
+    (``smartsplit(prof, H100_EDGE_CLOUD)``, fp32 as ``serve
+    --plan-split`` plans at the fp32 policy), l1 = 1 and 35 (one block on
+    either side) and 18 (halves)."""
     cfg = configs.all_configs()["qwen3-4b"]
     prof = profiles.transformer_profile(cfg, seq_len=SPLIT_SEQ,
                                         batch=SPLIT_BATCH, mode="prefill",
                                         dtype_bytes=4)
-    planned = core.smartsplit(prof, core.TPU_EDGE_CLOUD).split_index
+    planned = core.smartsplit(prof, core.H100_EDGE_CLOUD).split_index
     return planned, sorted({planned, 1, 18, 35})
 
 
@@ -1754,7 +1867,7 @@ def matmul_flops(cfg, batch: int, seq: int, mode: str) -> int:
 
 
 def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
-                SyntheticLM, launches, dev):
+                SyntheticLM, launches, energy, dev):
     """(a) Qwen3-4B at full width and depth, fp32, trained for 4 steps by
     ``train_loop.train`` (JAX's ``TrainConfig`` defaults: batch 8, 128
     tokens) on ``SyntheticLM``: every loss and grad norm finite, the
@@ -1768,7 +1881,12 @@ def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
     largest |value|, and a second card run bitwise equal.  (c) on the
     Qwen3-4B 2-layer run: a checkpoint after step 1, restored into fresh
     tensors on the card, takes step 2 to the uninterrupted run's loss and
-    params, bitwise.  No kernel of the port launches on this path."""
+    params, bitwise.  No kernel of the port launches on this path.
+    ``energy`` is phase 14's (meter, idle W) or, from
+    ``scripts/train_check.py``, the meter and an idle floor of its own:
+    (a) reports the joules a step of the meter's window around repeats of
+    one warm step (step 3's batch, going on from step 3's params and
+    optimizer state), as many as fill the meter's 2 s window."""
     import dataclasses
     import math
     import tempfile
@@ -1777,11 +1895,12 @@ def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
 
     launches.reset()
     rows = {}
+    meter, idle_w = energy
     # -- (a) --------------------------------------------------------------
     cfg = configs.all_configs()["qwen3-4b"]
     tcfg = train_loop.TrainConfig(steps=4, log_every=1)
     real_step, real_update = train_loop.make_train_step, opt.apply_updates
-    metrics, marks, opt_events, before = [], [], [], {}
+    metrics, marks, opt_events, before, warm = [], [], [], {}, {}
 
     def timed_update(*args, **kw):
         a = torch.cuda.Event(enable_timing=True)
@@ -1794,11 +1913,13 @@ def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
 
     def recording(cfg_, ocfg):
         step_fn = real_step(cfg_, ocfg)
+        warm["step"] = step_fn
 
         def step(params, opt_state, batch):
             if not before:      # a slice of every leaf before step 0
                 for i, t in enumerate(leaves(params)):
                     before[i] = t.reshape(-1)[:4096].clone()
+            warm["batch"] = batch
             out = step_fn(params, opt_state, batch)
             metrics.append(out[2])
             return out
@@ -1833,6 +1954,16 @@ def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
     step_ms = 1e3 * (marks[3] - marks[0]) / 3
     opt_ms = sum(a.elapsed_time(b) for a, b in opt_events[1:]) / 3
     arith = train_arithmetic(cfg, n_params, tcfg.batch * tcfg.seq_len)
+    state = [params, out["opt_state"]]
+
+    def warm_step():
+        state[0], state[1], _ = warm["step"](state[0], state[1],
+                                             warm["batch"])
+
+    steps = meter.measure(warm_step)
+    step_energy = energy_row(steps, idle_w, {
+        "step": steps.calls,
+        "token": steps.calls * tcfg.batch * tcfg.seq_len})
     rows["full"] = dict(
         config="qwen3-4b", layers=cfg.num_layers, params=n_params,
         batch=tcfg.batch, seq_len=tcfg.seq_len, steps=tcfg.steps,
@@ -1842,7 +1973,7 @@ def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
         optimizer_ms=opt_ms, optimizer_ms_each=[a.elapsed_time(b)
                                                 for a, b in opt_events],
         step_ms_each=[1e3 * (b - a) for a, b in zip(marks, marks[1:])],
-        peak_bytes=peak, held_bytes=held, **arith)
+        peak_bytes=peak, held_bytes=held, energy=step_energy, **arith)
     print(f"phase 11: qwen3-4b full width and depth ({n_params / 1e9:.2f} B "
           f"parameters, fp32), batch {tcfg.batch} x {tcfg.seq_len} tokens: "
           f"{step_ms:.1f} ms a step over steps 1-3, "
@@ -1853,7 +1984,12 @@ def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
           f"it held by earlier phases) against "
           f"{arith['state_bytes'] / 2**30:.2f} GiB of params, grads and "
           f"moments ({card_line()})")
-    del out, params, metrics, before
+    print(f"phase 11: energy of {steps.calls} warm steps after step 3 "
+          f"(NVML, {card_line()}, idle floor "
+          f"{idle_w:.1f} W): {steps.joules:.1f} J in {steps.seconds:.2f} s "
+          f"at {steps.watts:.1f} W, {energy_text(step_energy, 'step')}, "
+          f"{energy_text(step_energy, 'token')}")
+    del out, params, metrics, before, state, warm
     torch.cuda.empty_cache()
 
     # -- (b), (c) -----------------------------------------------------------
@@ -2094,17 +2230,24 @@ def phase_dryrun(torch, configs, dryrun, mesh_lib, roofline, train_row,
     roofline bound beside the step time phases 11 and 10 measured on the
     card: a train step, and a decode step alone (the bound has no
     prefill; phase 10's served pass, a prefill and 7 decode steps a
-    batch, is printed beside it, not held to it)."""
+    batch, is printed beside it, not held to it).  Each record's
+    ``energy_j`` is printed beside the joules above idle that phases 11
+    and 10 measured a step, as a ratio: printed, not held, since the
+    record's bytes are unfused eager traffic (a bound, not a
+    prediction)."""
     from repro_torch.configs.base import InputShape
     cfg = configs.all_configs()["qwen3-4b"]
     mesh = mesh_lib.make_debug_mesh((1,), ("data",), device="meta")
     cells = {"train": (InputShape("phase11_train", train_row["seq_len"],
                                   train_row["batch"], "train"),
-                       train_row["step_ms"]),
+                       train_row["step_ms"],
+                       train_row["energy"]["joules_above_idle_per_step"]),
              "decode": (InputShape("phase10_decode", 128, 4, "decode"),
-                        decode_row["decode_step_ms"])}
+                        decode_row["decode_step_ms"],
+                        decode_row["energy_decode_steps"][
+                            "joules_above_idle_per_step"])}
     out = {}
-    for mode, (shape, measured_ms) in cells.items():
+    for mode, (shape, measured_ms, measured_j) in cells.items():
         t0 = time.perf_counter()
         rec = dryrun.lower_cell(cfg, shape, mesh, "one-card",
                                 dtype=torch.float32)
@@ -2115,6 +2258,9 @@ def phase_dryrun(torch, configs, dryrun, mesh_lib, roofline, train_row,
                          memory_ms=1e3 * roof.memory_s,
                          dominant=roof.dominant, measured_ms=measured_ms,
                          bound_over_measured=bound_ms / measured_ms,
+                         energy_j=roof.energy_j,
+                         measured_j_above_idle=measured_j,
+                         energy_over_measured=roof.energy_j / measured_j,
                          seconds=time.perf_counter() - t0)
         check(rec["cost_extrapolated"] == rec["cost"],
               f"phase 13b {mode}: extrapolated cost "
@@ -2245,7 +2391,10 @@ def shape_line(row) -> str:
     return (f"bound {row['bound_ms']:.2f} ms ({row['dominant']}: compute "
             f"{row['compute_ms']:.2f}, memory {row['memory_ms']:.2f}) against "
             f"{row['measured_ms']:.2f} ms measured (bound / measured "
-            f"{row['bound_over_measured']:.3f}), args "
+            f"{row['bound_over_measured']:.3f}), energy_j "
+            f"{row['energy_j']:.4g} J against {row['measured_j_above_idle']:.4g}"
+            f" J above idle measured (energy_j / measured "
+            f"{row['energy_over_measured']:.3f}), args "
             f"{row['record']['memory']['argument_size_in_bytes'] / 2**30:.2f}"
             f" GiB, counted in {row['seconds']:.1f} s")
 
@@ -2321,7 +2470,8 @@ def main() -> int:
     from repro_torch.launch import partition
     from repro_torch.launch import smartsplit_exec
     from repro_torch.launch import dryrun
-    from repro_torch.analysis import roofline
+    from repro_torch.analysis import energy, roofline
+    from repro_torch.core import hardware
     from repro_torch.serving.engine import Engine
     from repro_torch.training import checkpoint, optimizer, train_loop
 
@@ -2362,9 +2512,10 @@ def main() -> int:
     stream_counts, stream_runs = phase_stream(torch, cnn, serve, launches,
                                               kquant, dev)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    meter, idle_w, energy_runs = phase_energy(energy, hardware, dev)
     t0 = time.perf_counter()
     decode_runs = phase_decode(torch, configs, transformer, Engine, launches,
-                               dev)
+                               (meter, idle_w), dev)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     split_runs = phase_split(torch, configs, core, profiles, transformer,
@@ -2390,7 +2541,7 @@ def main() -> int:
     t0 = time.perf_counter()
     train_runs = phase_train(torch, configs, transformer, train_loop,
                              partition, optimizer, checkpoint, SyntheticLM,
-                             launches, dev)
+                             launches, (meter, idle_w), dev)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     example_runs = phase_examples(torch, launches, kconv, kquant,
@@ -2433,7 +2584,8 @@ def main() -> int:
                                for k, v in codec_plans.items()],
                   kernel_report=kernel_report,
                   mixer_checks=mixer_rows, runs=runs, timings=time_rows,
-                  stream_runs=stream_runs, decode_runs=decode_runs,
+                  stream_runs=stream_runs, energy_runs=energy_runs,
+                  decode_runs=decode_runs,
                   split_runs=split_runs,
                   train_runs=train_runs, example_runs=example_runs,
                   dryrun_runs=dryrun_runs, memory_runs=memory_runs,

@@ -3,7 +3,8 @@ inference).
 
 Serves a small qwen3-family model with batched requests through the
 port's bucketed engine, THEN plans a SmartSplit two-tier placement for
-the same model on the TPU edge+cloud profile and executes the split
+the same model on the H100 edge + cloud pods (``h100-edge-cloud``, fp32
+as the example runs) and executes the split
 across a 2-pod mesh with the port's two-stage executor (both pods on one
 device), verifying split == monolithic logits and reporting the boundary
 bytes against the plan's prediction; then runs the paper's CNN on a
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import all_configs
-from repro_torch.core import TPU_EDGE_CLOUD, smartsplit
+from repro_torch.core import H100_EDGE_CLOUD, smartsplit
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.smartsplit_exec import two_stage_apply
@@ -61,10 +62,10 @@ def main(argv=None) -> None:
           f"({eng.stats['batches']:.0f} batches, bucketed by length)")
     assert done == 10
 
-    # ---- SmartSplit plan on the TPU two-tier profile ------------------------
+    # ---- SmartSplit plan on the H100 two-tier profile -----------------------
     prof = transformer_profile(cfg, seq_len=32, batch=4, mode="prefill",
                                dtype_bytes=4)   # example runs f32
-    plan = smartsplit(prof, TPU_EDGE_CLOUD)
+    plan = smartsplit(prof, H100_EDGE_CLOUD)
     print(f"SmartSplit plan for {cfg.name}: l1={plan.split_index}/"
           f"{cfg.num_layers} layers on the edge pod "
           f"(boundary {prof.boundary()[plan.split_index]:.0f} B predicted)")

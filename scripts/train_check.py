@@ -2,7 +2,8 @@
 """The training path on one card: phases 1 and 11 of ``chip_smoke.py``
 alone (the card's name and power limit; Qwen3-4B trained at full width
 and depth, the other block kinds held to the CPU, the checkpoint
-resumed bitwise) -- no kernel build and no other phase, the short call
+resumed bitwise, the meter's joules of a warm step above an idle floor
+it reads first) -- no kernel build and no other phase, the short call
 after a change to the training path.
 
     python3 scripts/train_check.py
@@ -31,6 +32,7 @@ def main() -> int:
     import chip_smoke as cs
 
     from repro_torch import configs
+    from repro_torch.analysis import energy
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import launches
@@ -45,9 +47,11 @@ def main() -> int:
           f"cuda {torch.version.cuda}; {tempfile.gettempdir()} has "
           f"{shutil.disk_usage(tempfile.gettempdir()).free / 1e9:.0f} GB "
           f"free")
+    meter = energy.EnergyMeter("cuda")
+    idle_w = meter.measure(energy.idle).watts
     rows = cs.phase_train(torch, configs, transformer, train_loop, partition,
                           optimizer, checkpoint, SyntheticLM, launches,
-                          torch.device("cuda"))
+                          (meter, idle_w), torch.device("cuda"))
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "train_check.json"), "w") as f:

@@ -12,19 +12,22 @@ prediction.  MODEL_FLOPS is the analytic 6*N_active*D (train) /
 2*N_active*D (inference), so ``useful_ratio`` shows remat, attention and
 the embedding gather against it.
 
-The constants are the H100 SXM's data sheet (dense, no sparsity), at its
-700 W power limit.  fp32 is the CUDA cores' rate, which the port runs
-under ``device.strict_fp32`` (no TF32).  ``energy_j`` of the JAX module
-is left out: its pJ-per-operation constants are a TPU's, and no H100
-figure is cited here."""
+The constants come from ``core/hardware.py``: the H100 SXM's data sheet
+(dense, no sparsity) at its 700 W power limit, fp32 being the CUDA cores'
+rate, which the port runs under ``device.strict_fp32`` (no TF32).
+``energy_j`` is the paper's f2 lifted to the fleet, a device's joules a
+step from the energy constants measured on the card (pJ/FLOP of the
+record's dtype, pJ/HBM byte) and NVLink's unmeasured estimate (pJ/link
+byte).  Like the terms, it counts the unfused eager traffic: a bound, not
+a prediction."""
 from __future__ import annotations
 
 import dataclasses
 
-H100_PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
-H100_HBM_BW = 3.35e12           # B/s
-H100_NVLINK_BW = 450e9          # B/s a direction (NVLink 4, 900 GB/s both)
-H100_HBM_BYTES = 80e9
+from repro_torch.core.hardware import (H100_HBM_BW, H100_HBM_BYTES,
+                                       H100_NVLINK_BW, H100_PEAK_FLOPS,
+                                       H100_PJ_PER_FLOP, H100_PJ_PER_HBM_BYTE,
+                                       NVLINK_PJ_PER_BYTE_ESTIMATE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +35,7 @@ class Roofline:
     arch: str
     shape: str
     mesh: str
+    dtype: str
     compute_s: float
     memory_s: float
     collective_s: float | None
@@ -55,6 +59,17 @@ class Roofline:
     def bound_s(self) -> float:
         return max(self.compute_s, self.memory_s, self.collective_s or 0.0)
 
+    @property
+    def energy_j(self) -> float:
+        """A device's joules a step: pJ/FLOP of the dtype + pJ/HBM byte +
+        pJ/link byte (left out, as in ``bound_s``, where the collectives
+        were not counted)."""
+        link = 0.0 if self.collective_s is None else \
+            self.collective_s * H100_NVLINK_BW * NVLINK_PJ_PER_BYTE_ESTIMATE
+        return (self.hlo_flops_total * H100_PJ_PER_FLOP[self.dtype]
+                + self.memory_s * H100_HBM_BW * H100_PJ_PER_HBM_BYTE
+                + link) * 1e-12
+
 
 def from_record(rec: dict) -> Roofline:
     """rec: one dry-run JSON record (see launch/dryrun.py).  A record
@@ -73,6 +88,7 @@ def from_record(rec: dict) -> Roofline:
         "temp_size_in_bytes")) - (mem.get("alias_size_in_bytes") or 0)
     return Roofline(
         arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+        dtype=rec["dtype"],
         compute_s=flops_dev / H100_PEAK_FLOPS[rec["dtype"]],
         memory_s=bytes_dev / H100_HBM_BW,
         collective_s=None if coll is None
@@ -87,7 +103,8 @@ def from_record(rec: dict) -> Roofline:
 def format_table(rows: list[Roofline]) -> str:
     hdr = (f"{'arch':24s} {'shape':12s} {'mesh':9s} "
            f"{'compute_s':>10s} {'memory_s':>10s} {'collect_s':>10s} "
-           f"{'bound':>10s} {'useful':>7s} {'GB/dev':>8s} {'fits':>5s}")
+           f"{'bound':>10s} {'useful':>7s} {'GB/dev':>8s} {'fits':>5s} "
+           f"{'J/dev':>8s}")
     lines = [hdr, "-" * len(hdr)]
     for r in rows:
         coll = "n/c" if r.collective_s is None else f"{r.collective_s:.4f}"
@@ -96,5 +113,6 @@ def format_table(rows: list[Roofline]) -> str:
             f"{r.compute_s:10.4f} {r.memory_s:10.4f} {coll:>10s} "
             f"{r.dominant:>10s} {r.useful_ratio:7.2f} "
             f"{r.bytes_per_device / 2**30:8.2f} "
-            f"{'yes' if r.hbm_budget_ok else 'NO':>5s}")
+            f"{'yes' if r.hbm_budget_ok else 'NO':>5s} "
+            f"{r.energy_j:8.2f}")
     return "\n".join(lines)

@@ -17,7 +17,7 @@ Cost model semantics (paper Eq. 2-13):
   E_upload  = (alpha_u * tau_u + beta_u) * T_upload             (Eq. 9)
   E_download= (alpha_d * tau_d + beta_d) * (d / B)              (Eq. 12)
 
-For roofline (TPU) tiers the compute time per side is
+For roofline (pod) tiers the compute time per side is
 ``max(flops/peak, bytes/hbm_bw)`` summed over that side's layers, and the
 energy is per-op accounting (pJ/FLOP + pJ/byte + pJ/link-byte); everything
 else is identical in form.

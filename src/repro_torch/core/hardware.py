@@ -6,36 +6,57 @@ Two families of profiles live behind one abstraction:
   the paper's Windows i5 server, 10 Mbps Wi-Fi) with the paper's energy
   constants (k = 1.172, Huang et al. radio model), used to reproduce
   Tables I/II and Figures 6-10;
-* TPU pod-tier profiles (v5e edge pod / cloud pod, inter-pod DCN link),
-  used by the beyond-paper two-tier TPU partitioner.
+* NVIDIA H100 pod-tier profiles (an edge pod and a cloud pod of H100
+  SXM cards, joined by an InfiniBand NDR link), used by the beyond-paper
+  two-tier partitioner.
 
-Energy constants for the TPU tier are documented estimates (per-chip wall
-power at peak divided by peak throughput; HBM/ICI energy from published
-pJ/bit figures) -- they parameterise the f2 objective, and every benchmark
-records which profile produced its numbers.
+This module is the port's one home of the H100's constants: the data
+sheet's peaks, and the energy constants measured on the card by
+``analysis/energy.py``'s calibration (marginal energy above the idle
+floor).  The link energies are estimates that one card cannot measure;
+each says so where it is defined.  Every benchmark records which profile
+produced its numbers.
 """
 from __future__ import annotations
 
 import dataclasses
 
 # ---------------------------------------------------------------------------
-# TPU v5e roofline constants (the assignment's hardware targets).
+# NVIDIA H100 SXM constants (data sheet, dense rates without sparsity, at
+# the 700 W power limit).  fp32 is the CUDA cores' rate, which the port
+# runs under ``device.strict_fp32`` (no TF32); bf16 the tensor cores'.
+# tf32 is the tensor cores' TF32 rate, which the hand-written kernels'
+# 3xTF32 passes run at (no record or tier computes in it).
 # ---------------------------------------------------------------------------
-V5E_PEAK_FLOPS_BF16 = 197e12        # FLOP/s per chip
-V5E_HBM_BW = 819e9                  # bytes/s per chip
-V5E_HBM_BYTES = 16 * 1024**3        # 16 GiB HBM per chip
-ICI_LINK_BW = 50e9                  # bytes/s per link (assignment constant)
-DCN_POD_BW = 25e9                   # bytes/s inter-pod (DCN, conservative)
+H100_PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "tf32": 495e12}
+H100_HBM_BW = 3.35e12               # bytes/s a card (HBM3)
+H100_HBM_BYTES = 80e9               # bytes of HBM a card
+H100_NVLINK_BW = 450e9              # bytes/s a direction (NVLink 4, 900 GB/s both)
+# Between pods: one InfiniBand NDR port, 400 Gb/s (NVIDIA ConnectX-7
+# adapter data sheet).
+IB_NDR_BW = 400e9 / 8               # bytes/s
 
-# TPU energy model (documented estimates, see module docstring):
-#   ~200 W chip at peak compute -> 200/197e12 ~ 1.0 pJ/FLOP.
-#   HBM2e access energy ~ 3.5 pJ/bit -> ~28 pJ/byte; we use 15 pJ/byte to
-#   reflect on-chip reuse (not every HLO byte is a DRAM transaction).
-#   ICI serdes ~ 10 pJ/byte; DCN (optical + NIC) ~ 40 pJ/byte.
-TPU_PJ_PER_FLOP = 1.0
-TPU_PJ_PER_HBM_BYTE = 15.0
-TPU_PJ_PER_ICI_BYTE = 10.0
-TPU_PJ_PER_DCN_BYTE = 40.0
+# Energy, measured on the card: the marginal energy above the idle floor,
+# (E - P_idle * t) / work, from NVML's energy counter around an 8192^3
+# GEMM (fp32 under strict_fp32; bf16, which runs at the power limit) and
+# a 4 GiB device-to-device copy (2 bytes moved a byte copied), and the
+# idle floor with a context up.  Each is the median of seven whole
+# calibrations on three machines, each card "NVIDIA H100 80GB HBM3,
+# 700.00 W" (``nvidia-smi --query-gpu=name,power.limit
+# --format=csv,noheader``): six by
+#     python3 scripts/energy_calibrate.py --runs 3
+# (run twice) and one by ``chip_smoke.py``'s phase 14, which fails when
+# a measurement leaves its ``ENERGY_BAND`` around these.  Spread of the
+# seven, (max - min) / median: idle 22%, fp32 3.0%, bf16 3.8%, HBM 13%.
+H100_PJ_PER_FLOP = {"fp32": 10.67, "bf16": 0.814}
+H100_PJ_PER_HBM_BYTE = 128.1
+H100_IDLE_W = 139.1
+# Link energy: not measured -- NVLink needs two cards, the inter-pod
+# network two nodes.  Both are unmeasured estimates kept from the JAX
+# package's energy model (a serdes hop ~10 pJ/B; an optical network hop
+# with its NICs ~40 pJ/B), not the card's numbers.
+NVLINK_PJ_PER_BYTE_ESTIMATE = 10.0
+IB_PJ_PER_BYTE_ESTIMATE = 40.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +66,7 @@ class DeviceTier:
     The paper's compute model is latency = M|l / (cores * speed): a
     memory-as-work proxy over cores x clock.  ``compute_scale`` is the
     (cores * speed) denominator in *bytes per second* equivalents for the
-    paper profile; the TPU profile instead fills peak_flops/hbm_bw and the
+    paper profile; a pod profile instead fills peak_flops/hbm_bw and the
     cost model uses a per-layer roofline (see core/costs.py).
     """
 
@@ -53,13 +74,13 @@ class DeviceTier:
     cores: int
     speed_hz: float                 # per-core clock (paper model)
     memory_budget: float            # bytes available to the app (constraint M)
-    # Roofline terms (TPU tiers; 0 => use the paper cores*speed model).
+    # Roofline terms (pod tiers; 0 => use the paper cores*speed model).
     chips: int = 0
     peak_flops: float = 0.0
     hbm_bw: float = 0.0
     # Energy model. Paper client: P = k * cores * nu^3 (nu in GHz, P in W).
     energy_k: float = 0.0
-    # TPU tier energy.
+    # Pod tier energy.
     pj_per_flop: float = 0.0
     pj_per_hbm_byte: float = 0.0
 
@@ -80,7 +101,7 @@ class DeviceTier:
 
 @dataclasses.dataclass(frozen=True)
 class LinkProfile:
-    """The client->server transport (paper: Wi-Fi; TPU: ICI/DCN)."""
+    """The client->server transport (paper: Wi-Fi; pods: InfiniBand)."""
 
     name: str
     bandwidth: float                # bytes/s (paper B, converted from Mbps)
@@ -89,7 +110,7 @@ class LinkProfile:
     alpha_up_mw_per_mbps: float = 0.0
     alpha_down_mw_per_mbps: float = 0.0
     beta_mw: float = 0.0
-    # TPU link energy.
+    # Pod link energy.
     pj_per_byte: float = 0.0
 
     def upload_power_w(self, throughput_bytes_s: float) -> float:
@@ -253,44 +274,49 @@ PAPER_ENV_NOTE8 = TwoTierHardware(client=REDMI_NOTE8, server=PAPER_CLOUD,
 
 
 # ---------------------------------------------------------------------------
-# TPU pod tiers (beyond-paper adaptation).
+# H100 pod tiers (beyond-paper adaptation).
 # ---------------------------------------------------------------------------
-def tpu_pod_tier(name: str, chips: int,
-                 peak_flops: float = V5E_PEAK_FLOPS_BF16,
-                 hbm_bw: float = V5E_HBM_BW,
-                 hbm_bytes: float = V5E_HBM_BYTES) -> DeviceTier:
+def h100_pod_tier(name: str, chips: int, dtype: str = "fp32") -> DeviceTier:
+    """A pod of ``chips`` H100s computing in ``dtype`` ("fp32" on the
+    CUDA cores, "bf16" on the tensor cores): its peak and pJ/FLOP are
+    the dtype's, its memory budget every card's HBM."""
     return DeviceTier(
         name=name, cores=chips, speed_hz=0.0,
-        memory_budget=chips * hbm_bytes,
-        chips=chips, peak_flops=chips * peak_flops, hbm_bw=chips * hbm_bw,
-        pj_per_flop=TPU_PJ_PER_FLOP, pj_per_hbm_byte=TPU_PJ_PER_HBM_BYTE,
+        memory_budget=chips * H100_HBM_BYTES,
+        chips=chips, peak_flops=chips * H100_PEAK_FLOPS[dtype],
+        hbm_bw=chips * H100_HBM_BW,
+        pj_per_flop=H100_PJ_PER_FLOP[dtype],
+        pj_per_hbm_byte=H100_PJ_PER_HBM_BYTE,
     )
 
 
-DCN_LINK = LinkProfile(name="inter-pod-dcn", bandwidth=DCN_POD_BW,
-                       pj_per_byte=TPU_PJ_PER_DCN_BYTE)
-ICI_LINK = LinkProfile(name="ici", bandwidth=ICI_LINK_BW,
-                       pj_per_byte=TPU_PJ_PER_ICI_BYTE)
+IB_NDR_LINK = LinkProfile(name="inter-pod-ib-ndr", bandwidth=IB_NDR_BW,
+                          pj_per_byte=IB_PJ_PER_BYTE_ESTIMATE)
 
-# Default production two-tier environment: a small "edge" pod slice fronting
-# a big "cloud" pod, connected by DCN -- the TPU analogue of phone+server.
-TPU_EDGE_CLOUD = TwoTierHardware(
-    client=tpu_pod_tier("v5e-edge-16", chips=16),
-    server=tpu_pod_tier("v5e-cloud-256", chips=256),
-    link=DCN_LINK,
-)
-# Symmetric 2-pod environment matching the (2, 16, 16) production mesh.
-TPU_TWO_POD = TwoTierHardware(
-    client=tpu_pod_tier("v5e-pod0-256", chips=256),
-    server=tpu_pod_tier("v5e-pod1-256", chips=256),
-    link=DCN_LINK,
+
+def h100_edge_cloud(dtype: str = "fp32") -> TwoTierHardware:
+    """A small "edge" pod of 16 H100s fronting a "cloud" pod of 256 over
+    the inter-pod link -- the pod analogue of phone + server."""
+    return TwoTierHardware(
+        client=h100_pod_tier("h100-edge-16", chips=16, dtype=dtype),
+        server=h100_pod_tier("h100-cloud-256", chips=256, dtype=dtype),
+        link=IB_NDR_LINK,
+    )
+
+
+H100_EDGE_CLOUD = h100_edge_cloud()
+# Two symmetric pods of 256 H100s over the inter-pod link.
+H100_TWO_POD = TwoTierHardware(
+    client=h100_pod_tier("h100-pod0-256", chips=256),
+    server=h100_pod_tier("h100-pod1-256", chips=256),
+    link=IB_NDR_LINK,
 )
 
 PROFILES = {
     "paper-j6": PAPER_ENV_J6,
     "paper-note8": PAPER_ENV_NOTE8,
-    "tpu-edge-cloud": TPU_EDGE_CLOUD,
-    "tpu-two-pod": TPU_TWO_POD,
+    "h100-edge-cloud": H100_EDGE_CLOUD,
+    "h100-two-pod": H100_TWO_POD,
 }
 
 

@@ -3,8 +3,8 @@
 
 Boots the bucketed batch decode engine (``serving.engine``) on the reduced
 config (vocab <= 512), optionally planning the SmartSplit placement first
-(``--plan-split`` prints the chosen split and its predicted objective
-triple).
+(``--plan-split`` prints the chosen split on the H100 edge + cloud pods
+and its predicted objective triple).
 
 ``--cnn <model>`` instead serves one of the paper's CNNs through the
 fault-tolerant chain runtime: plans a K-tier chain placement (``--tiers``,
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import all_configs
-from repro_torch.core import (CONV_DTYPES, TPU_EDGE_CLOUD, WIRE_DTYPES,
+from repro_torch.core import (CONV_DTYPES, WIRE_DTYPES, h100_edge_cloud,
                               smartsplit)
 from repro_torch.core.dtype_policy import conv_dtype
 from repro_torch.core.dtype_policy import dtype_bytes as policy_bytes
@@ -243,16 +243,35 @@ def serve_cnn(args, *, params=None, quiet: bool = False) -> dict:
             "seconds": dt, "launches": counts}
 
 
+def plan_split(cfg, batch: int, dtype: str | None = None):
+    """``--plan-split``: the SmartSplit placement of ``cfg``'s prefill
+    profile (64 tokens, ``batch``) under the storage dtype policy, on the
+    H100 edge + cloud pods computing in that dtype, and the
+    ``SmartSplit:`` line the launcher prints."""
+    from repro_torch.launch.partition import split_boundary_struct
+    from repro_torch.models.profiles import transformer_profile
+
+    policy = conv_dtype(dtype)
+    prof = transformer_profile(cfg, seq_len=64, batch=batch, mode="prefill",
+                               dtype_bytes=policy_bytes(policy))
+    plan = smartsplit(prof, h100_edge_cloud(policy))
+    lat, en, mem = plan.objectives
+    _, link_bytes = split_boundary_struct(cfg, batch, 64, dtype=policy)
+    return plan, (f"SmartSplit: l1={plan.split_index}/{cfg.num_layers} "
+                  f"latency={lat:.2e}s energy={en:.2e}J "
+                  f"edge-mem={mem / 2**20:.1f}MiB "
+                  f"boundary={link_bytes}B ({policy})")
+
+
 def serve_arch(args, *, quiet: bool = False) -> dict:
     """``--arch``: the bucketed decode engine on the reduced config (vocab
     <= 512) with ``init_params`` at seed 0 in fp32 on the device,
     ``--requests`` greedy requests of 8, 16 or 24
     prompt tokens; ``--plan-split`` first prints the SmartSplit placement
-    of the prefill profile and its boundary's bytes.  Returns the engine,
+    of the prefill profile on the H100 pods (``plan_split``) and its
+    boundary's bytes.  Returns the engine,
     its requests, the wall time of ``run_until_idle`` and the plan."""
-    from repro_torch.launch.partition import split_boundary_struct
     from repro_torch.models import transformer as T
-    from repro_torch.models.profiles import transformer_profile
     from repro_torch.serving.engine import Engine
 
     dev = resolve_device(args.device)
@@ -265,18 +284,8 @@ def serve_arch(args, *, quiet: bool = False) -> dict:
 
     plan = None
     if args.plan_split:
-        policy = conv_dtype(args.dtype)
-        prof = transformer_profile(cfg, seq_len=64, batch=args.max_batch,
-                                   mode="prefill",
-                                   dtype_bytes=policy_bytes(policy))
-        plan = smartsplit(prof, TPU_EDGE_CLOUD)
-        lat, en, mem = plan.objectives
-        _, link_bytes = split_boundary_struct(cfg, args.max_batch, 64,
-                                              dtype=policy)
-        say(f"SmartSplit: l1={plan.split_index}/{cfg.num_layers} "
-            f"latency={lat:.2e}s energy={en:.2e}J "
-            f"edge-mem={mem / 2**20:.1f}MiB "
-            f"boundary={link_bytes}B ({policy})")
+        plan, line = plan_split(cfg, args.max_batch, args.dtype)
+        say(line)
 
     params = T.init_params(cfg, 0, torch.float32, dev)
     eng = Engine(cfg, params, max_len=128, max_batch=args.max_batch,

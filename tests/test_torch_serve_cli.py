@@ -1,14 +1,15 @@
 """The port's serving launcher (``repro_torch.launch.serve.main``) on the
 CPU, on every path the JAX launcher has: the CNN stream (``--concurrency``,
 ``--no-pipeline``, ``--tier-faults``, ``--drop``, the int8 wire) and the
-transformer decode path (``--arch --plan-split``).
+transformer decode path (``--arch --plan-split``, which plans on the
+H100 pods where the JAX launcher plans on a TPU's).
 
 The stream path's printed summary -- served counts, batches, virtual span,
 virtual req/s and p50/p99, repicks, tier and breaker counters, per-hop
 bytes, goodput and drops -- equals ``repro.launch.serve.serve_cnn_stream``'s
 on the same arguments line for line; only the wall seconds and the port's
-line of kernel launch counts differ.  The ``--arch`` path prints the JAX
-launcher's SmartSplit line exactly."""
+line of kernel launch counts differ.  On the reference's TPU tiers the
+port's planner prints the JAX launcher's SmartSplit line exactly."""
 import re
 import sys
 
@@ -70,22 +71,73 @@ def test_stream_returns_engine_and_logits():
         assert torch.equal(req.logits, want)
 
 
+def _split_lines(text: str) -> list[str]:
+    return [ln for ln in text.splitlines() if ln.startswith("SmartSplit:")]
+
+
 def test_arch_plan_split_equals_jax(capsys, monkeypatch):
+    """JAX's ``SmartSplit:`` line is the one the port's CLI prints when it
+    plans on the reference's ``TPU_EDGE_CLOUD`` carried into the port's
+    dataclasses; both launchers serve the same requests."""
+    from repro.core.hardware import TPU_EDGE_CLOUD
+    from test_torch_hardware import port_hardware
     argv = ["--arch", "qwen3-4b", "--plan-split", "--requests", "3",
             "--max-new-tokens", "4"]
-    out = tserve.main([*argv, "--device", "cpu"])
-    port = capsys.readouterr().out
     monkeypatch.setattr(sys, "argv", ["serve", *argv])
     jserve.main()
     jax_out = capsys.readouterr().out
+    out = tserve.main([*argv, "--device", "cpu"])
+    port = capsys.readouterr().out
     assert out is None
-    split = [ln for ln in port.splitlines() if ln.startswith("SmartSplit:")]
-    assert split and split == [ln for ln in jax_out.splitlines()
-                               if ln.startswith("SmartSplit:")]
+    monkeypatch.setattr(tserve, "h100_edge_cloud",
+                        lambda dtype: port_hardware(TPU_EDGE_CLOUD))
+    tserve.main([*argv, "--device", "cpu"])
+    on_tpu_tiers = capsys.readouterr().out
+    assert _split_lines(on_tpu_tiers) == _split_lines(jax_out)
+    assert len(_split_lines(jax_out)) == 1
     head = re.compile(r"served \d+ requests / \d+ tokens")
     assert head.search(port).group(0) == head.search(jax_out).group(0) \
         == "served 3 requests / 12 tokens"
     assert "on cpu" in port
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_arch_plan_split_plans_on_the_h100_pods(dtype, capsys):
+    """The CLI's ``SmartSplit:`` line is ``smartsplit`` of the prefill
+    profile on the H100 edge + cloud pods of the policy's dtype, and
+    JAX's planner, given those pods field by field, makes the same plan
+    with the same objectives, bitwise."""
+    import dataclasses
+
+    from repro.configs import all_configs as jall
+    from repro.core.smartsplit import smartsplit as jsmartsplit
+    from repro.models.profiles import transformer_profile as jprofile
+    from repro_torch.core import H100_EDGE_CLOUD, h100_edge_cloud
+    from repro_torch.launch.partition import split_boundary_struct
+    from repro_torch.models.profiles import transformer_profile
+    from test_torch_hardware import jax_hardware, plan_fields
+    argv = ["--arch", "qwen3-4b", "--plan-split", "--requests", "1",
+            "--max-new-tokens", "2", "--dtype", dtype, "--device", "cpu"]
+    tserve.main(argv)
+    port = capsys.readouterr().out
+    cfg = tserve.all_configs()["qwen3-4b"].reduced()
+    cfg = dataclasses.replace(cfg, vocab_size=min(cfg.vocab_size, 512))
+    kw = dict(seq_len=64, batch=4, mode="prefill",
+              dtype_bytes={"fp32": 4, "bf16": 2}[dtype])
+    prof = transformer_profile(cfg, **kw)
+    hw = h100_edge_cloud(dtype)
+    assert (hw == H100_EDGE_CLOUD) == (dtype == "fp32")
+    plan = tserve.smartsplit(prof, hw)
+    lat, en, mem = plan.objectives
+    _, link_bytes = split_boundary_struct(cfg, 4, 64, dtype=dtype)
+    assert _split_lines(port) == [
+        f"SmartSplit: l1={plan.split_index}/{cfg.num_layers} "
+        f"latency={lat:.2e}s energy={en:.2e}J "
+        f"edge-mem={mem / 2**20:.1f}MiB boundary={link_bytes}B ({dtype})"]
+    jcfg = jall()["qwen3-4b"].reduced()
+    jcfg = dataclasses.replace(jcfg, vocab_size=min(jcfg.vocab_size, 512))
+    jplan = jsmartsplit(jprofile(jcfg, **kw), jax_hardware(hw))
+    assert plan_fields(plan) == plan_fields(jplan)
 
 
 def test_arch_path_returns_engine():
