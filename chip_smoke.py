@@ -171,10 +171,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    one train step of each recurrent kind at full width and phase 11's
    cut depth (RWKV6-7B 2 layers, whose token loop keeps a (64, 64) fp32
    state a head, token and sample for the backward; Zamba2-7B 6, one
-   application of the shared block), batch 2 x 512, arguments + output +
-   temp - alias against the peak less what was allocated before its
-   weights; each within ``MEMORY_BAND`` (5% + 256 MiB: cuBLAS's
-   workspace and the allocator's rounding);
+   application of the shared block), batch 2 x 512, and RWKV6-7B at 2 x
+   2048 too (its memory fit from S 64 and 128 moment by moment, as every
+   RWKV6 train cell's), arguments + output + temp - alias against the
+   peak less what was allocated before its weights; each within
+   ``MEMORY_BAND`` (5% + 256 MiB: cuBLAS's workspace and the allocator's
+   rounding);
 14. the card's energy constants, after phase 9 and before phase 10 (whose
    idle floor phases 10 and 11 subtract): ``analysis.energy.calibrate``
    reads NVML's energy counter over three 2 s windows each of the idle
@@ -1825,9 +1827,12 @@ def phase_split(torch, configs, core, profiles, T, X, M, launches, dev):
 # ---------------------------------------------------------------------------
 TRAIN_TOL = 1e-4
 TRAIN_KINDS = [("qwen3-4b", 2)] + [(name, n) for name, n, _ in BLOCK_KINDS]
-# phase 13c (iii): the recurrent kinds at phase 11's depths
-MEMORY_KINDS = [(name, n) for name, n, _ in BLOCK_KINDS
-                if name in ("rwkv6-7b", "zamba2-7b")]
+# phase 13c (iii): the recurrent kinds at phase 11's depths, batch 2 x
+# 512 (row name, config, layers, tokens), and RWKV6-7B at 2 x 2048, past
+# its fit points' reach of the old direct count (S 512)
+MEMORY_KINDS = [(name, name, n, 512) for name, n, _ in BLOCK_KINDS
+                if name in ("rwkv6-7b", "zamba2-7b")] \
+    + [("rwkv6-7b_2x2048", "rwkv6-7b", 2, 2048)]
 
 
 def train_arithmetic(cfg, n_params: int, tokens: int) -> dict:
@@ -2298,9 +2303,11 @@ def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, optimizer,
     ``max_memory_allocated`` less ``memory_allocated`` before it, after
     one untimed step on the same arguments; (iii) for each of
     ``MEMORY_KINDS`` (full width, phase 11's cut depth), one
-    ``make_train_step`` at batch 2 x 512 from fresh weights and moments,
-    the whole step against the peak less what was allocated before the
-    weights (RWKV6's counts are fit affinely from S 64 and 128)."""
+    ``make_train_step`` at batch 2 x its length from fresh weights and
+    moments, the whole step against the peak less what was allocated
+    before the weights.  RWKV6's memory (2 x 512 and 2 x 2048) is fit
+    from S 64 and 128, moment by moment (``dryrun._fit_memory``);
+    Zamba2's is counted at its own length."""
     import dataclasses
     import math
 
@@ -2353,12 +2360,14 @@ def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, optimizer,
     del out, params, cache
     torch.cuda.empty_cache()
 
-    for name, n_layers in MEMORY_KINDS:
-        kcfg = dataclasses.replace(configs.all_configs()[name],
+    for name, arch, n_layers, seq in MEMORY_KINDS:
+        kcfg = dataclasses.replace(configs.all_configs()[arch],
                                    num_layers=n_layers)
-        shape = InputShape("train_2x512", 512, 2, "train")
+        shape = InputShape(f"train_2x{seq}", seq, 2, "train")
+        t0 = time.perf_counter()
         rec = dryrun.lower_cell(kcfg, shape, mesh, "one-card",
                                 dtype=torch.float32)
+        counted_s = time.perf_counter() - t0
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2366,15 +2375,21 @@ def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, optimizer,
         params = T.init_params(kcfg, 0, torch.float32, dev)
         opt_state = optimizer.init_state(params)
         g = torch.Generator().manual_seed(14)
-        batch = {k: torch.randint(0, kcfg.vocab_size, (2, 512),
+        batch = {k: torch.randint(0, kcfg.vocab_size, (2, seq),
                                   generator=g).to(dev, torch.int32)
                  for k in ("tokens", "labels")}
+        t0 = time.perf_counter()
         out = partition.make_train_step(kcfg)(params, opt_state, batch)
         torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
         loss = float(out[2]["loss"])
         check(math.isfinite(loss), f"phase 13c {name}: loss {loss}")
         held_to(name, rec["memory"], peak - before, True)
+        rows[name].update(seq_len=seq, layers=n_layers, step_s=step_s,
+                          counted_s=counted_s,
+                          memory_note=rec["memory_note"],
+                          memory_stages=rec["memory_stages"])
         del out, params, opt_state, batch
         torch.cuda.empty_cache()
     print(f"phase 13c: the dry-run's memory counter against the card "
@@ -2382,7 +2397,9 @@ def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, optimizer,
               f"{k} predicted {r['predicted_bytes'] / 2**30:.3f} GiB, "
               f"measured {r['measured_bytes'] / 2**30:.3f} GiB "
               f"(measured / predicted {r['measured_over_predicted']:.4f}, "
-              f"band +-{r['band_bytes'] / 2**30:.3f} GiB)"
+              f"band +-{r['band_bytes'] / 2**30:.3f} GiB"
+              + (f"; a step {r['step_s']:.1f} s, counted in "
+                 f"{r['counted_s']:.1f} s" if "step_s" in r else "") + ")"
               for k, r in rows.items()))
     return rows
 

@@ -37,7 +37,11 @@ What each key holds (``analysis/hlo.py`` says what each counter counts):
   a one-device mesh, else on the DTensor pass's local tensors: at the
   real depth where its plain pass fits ``COLLECTIVE_OP_BUDGET``, else
   extrapolated over the variants (``memory_note`` says which).
-  ``generated_code_size_in_bytes`` is ``null``: nothing is compiled.
+  ``memory_stages`` -- the temp of each stage the step marks
+  (``transformer``'s units forward and backward, the head and loss, the
+  embedding's backward, the gradient reduction, AdamW), where counted;
+  temp is the largest.  ``generated_code_size_in_bytes`` is ``null``:
+  nothing is compiled.
 * ``collective_bytes`` / ``collective_counts`` -- from a second pass on
   DTensors under a fake process group of ``num_devices`` ranks (no data
   moves), extrapolated over the variants.  The pass runs on a 2-D
@@ -59,12 +63,15 @@ What each key holds (``analysis/hlo.py`` says what each counter counts):
   token loop dispatches ~46 aten ops a token and layer, hours of passes
   at the cells' lengths.  Their costs and collectives are affine in S
   (the mixer's body gathers no token, and its backward stacks the
-  tokens' gradients once), so that fit is exact; their memory is not
-  (``_seq_points``): one device's is counted at the cell's own length
-  up to ``SEQ_MEMORY_DIRECT``, and a train cell's fit memory is a lower
-  bound (``memory_note`` says so).  ``extrapolation`` says which
-  extrapolation a record used.  A variant whose plain pass dispatches more than
-  ``COLLECTIVE_OP_BUDGET`` aten ops, or whose DTensor pass raises, gets
+  tokens' gradients once), so that fit is exact.  Their peak memory is
+  not: which stage peaks, and which moment within a stage, moves with S
+  (``_seq_points``).  So the memory is fit moment by moment: each
+  moment's live bytes -- keyed alike at every S, a token loop's by its
+  first and last iterations (``hlo.LiveBytes``) -- are affine in S, and
+  the temp is the largest at the cell's S (``_fit_memory``).
+  ``extrapolation`` says which extrapolation a record used.  A variant
+  whose plain pass dispatches more than ``COLLECTIVE_OP_BUDGET`` aten
+  ops, or whose DTensor pass raises, gets
   ``collective_bytes: null`` and a ``collectives`` key that says why; a
   one-device mesh issues no collectives, so its counts are 0 with no
   pass.
@@ -99,12 +106,14 @@ import warnings
 
 import torch
 
+from repro_torch.analysis import hlo
 from repro_torch.analysis.hlo import (COLLECTIVE_OPS, count_collectives,
                                       count_cost)
 from repro_torch.configs import INPUT_SHAPES, all_configs, shape_skips
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import mesh as M
 from repro_torch.launch import partition as PT
+from repro_torch.models import layers as L
 from repro_torch.models import sharded
 from repro_torch.models import transformer as T
 from repro_torch.tree import leaves, tree_map
@@ -115,13 +124,9 @@ LONG_WINDOW = 8192
 # an op once cached, on a CPU core), so this bounds a pass at ~30 s
 COLLECTIVE_OP_BUDGET = 60_000
 # the sequence lengths RWKV6's train and prefill cells are counted at
-# (``_seq_points``); their costs and collectives are affine in S
+# (``_seq_points``); their costs, collectives and memory moments are
+# affine in S
 SEQ_POINTS = (64, 128)
-# the longest such cell whose one-device memory is counted at its own
-# length (a plain pass of its token loop: ~10 s for 2 RWKV6-7B layers
-# at 512), not fit: the step's peak is the largest of its stages', and
-# which stage peaks moves with S (``_seq_points``)
-SEQ_MEMORY_DIRECT = 512
 DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
 
@@ -181,9 +186,22 @@ def _structs(cfg: ModelConfig, shape: InputShape, mesh, dtype) -> tuple:
     return params, batch["tokens"], cache
 
 
+def _marked(reduce_grads):
+    """``reduce_grads`` (None: the grads as they are) between the stage
+    marks of the gradient reduction and AdamW (``hlo.mark``): the same
+    ops either way."""
+    def run(grads, mu):
+        hlo.mark("gradient reduction")
+        if reduce_grads is not None:
+            grads = reduce_grads(grads, mu)
+        hlo.mark("optimizer")
+        return grads
+    return run
+
+
 def _step(cfg: ModelConfig, shape: InputShape, reduce_grads=None):
     if shape.mode == "train":
-        return PT.make_train_step(cfg, reduce_grads=reduce_grads)
+        return PT.make_train_step(cfg, reduce_grads=_marked(reduce_grads))
     if shape.mode == "prefill":
         return PT.make_encode_step(cfg) if cfg.is_encoder \
             else PT.make_prefill_step(cfg)
@@ -194,15 +212,24 @@ def _measure(cfg: ModelConfig, shape: InputShape, mesh, dtype,
              memory: bool = False) -> dict:
     """The step on plain meta tensors of the global shapes: global flops,
     bytes and aten ops, the wall seconds, and with ``memory`` the step's
-    memory sizes (one device's where the mesh has one)."""
+    memory sizes, stage temps and moments (``hlo.LiveBytes``; one
+    device's where the mesh has one)."""
     t0 = time.perf_counter()
     args = tuple(PT.tensors(s) for s in _structs(cfg, shape, mesh, dtype))
-    cost = count_cost(_step(cfg, shape), *args, memory=memory)
+    with _token_loops():
+        cost = count_cost(_step(cfg, shape), *args, memory=memory)
     out = {"flops": cost["flops"], "bytes": cost["bytes accessed"],
            "ops": cost["ops"], "wall_s": round(time.perf_counter() - t0, 2)}
     if memory:
-        out["memory"] = cost["memory"]
+        out.update({k: cost[k] for k in ("memory", "stage_temps",
+                                         "moments")})
     return out
+
+
+def _token_loops():
+    """RWKV6's token step as a loop body (``hlo.loop_body``): its memory
+    moments keyed by their place from the loop's ends."""
+    return hlo.loop_body(L, "rwkv6_step")
 
 
 def _device_mesh(mesh):
@@ -249,7 +276,7 @@ def _measure_collectives(cfg: ModelConfig, shape: InputShape, mesh, dtype,
     args = tuple(tree_map(lambda s: _dtensor(s, device_mesh, joins), st)
                  for st in _structs(cfg, shape, mesh, dtype))
     with implicit_replication(), warnings.catch_warnings(), \
-            sharded.counting(ep) as run:
+            sharded.counting(ep) as run, _token_loops():
         # the port's 1-element position offsets, replicated as meant
         warnings.filterwarnings("ignore", message="Found a non-scalar")
         res = count_collectives(_step(cfg, shape, _to_moment_layout),
@@ -291,13 +318,15 @@ def _seq_points(cfg: ModelConfig, shape: InputShape):
     where the scan's trips are extrapolated.  A cell's costs and
     collectives are affine in S, so their fit from the two is the cell's
     count (``tests/test_torch_dryrun_sharded.py`` holds it at S 256).
-    Its memory is not: the peak is the largest of the step's stages',
-    each affine in S, and in train the optimizer's (all the gradients)
-    peaks at short S, a block's recompute (its tokens' saved states)
-    past a few hundred tokens (2 RWKV6-7B layers at batch 2: 5.17 GB of
-    temp at S 64, 128 and 256, 6.33 GB at 512).  A fit from short
-    lengths is then a lower bound; ``lower_cell`` counts one device's
-    memory at the cell's own length up to ``SEQ_MEMORY_DIRECT``."""
+    Its peak memory is not: it is the largest of the step's stages'
+    peaks, and in train AdamW's (every gradient alive) peaks at short S,
+    a block's backward (its tokens' saved states) or the head later (2
+    RWKV6-7B layers at batch 2: 5.17 GB of temp at S 64, 128 and 256,
+    6.33 GB at 512); within a stage, which moment peaks moves with S too
+    (the head's unembedding gradient against a logits-sized buffer).
+    Each moment's live bytes are affine in S (``hlo.LiveBytes`` keys
+    them alike at every S), so ``_fit_memory`` fits each and takes the
+    largest at the cell's S."""
     if cfg.pattern == "rwkv" and shape.mode != "decode" \
             and shape.seq_len > SEQ_POINTS[1]:
         return SEQ_POINTS
@@ -313,15 +342,15 @@ def _affine(a, b, s1: int, s2: int, s: int):
 
 def _measure_at(cfg, shape, mesh, dtype, points, memory=False) -> dict:
     """``_measure`` of the cell, or where ``points`` are given, of the
-    cell at those two sequence lengths (kept under ``"points"``), taken
-    affinely to its own."""
+    cell at those two sequence lengths (kept under ``"points"``), its
+    costs taken affinely to its own (its memory: ``_fit_memory``)."""
     if points is None:
         return _measure(cfg, shape, mesh, dtype, memory)
     at = {s: _measure(cfg, dataclasses.replace(shape, seq_len=s), mesh,
                       dtype, memory) for s in points}
     s1, s2 = points
     out = {k: _affine(at[s1][k], at[s2][k], s1, s2, shape.seq_len)
-           for k in at[s1] if k != "wall_s"}
+           for k in ("flops", "bytes", "ops")}
     return {**out, "wall_s": round(at[s1]["wall_s"] + at[s2]["wall_s"], 2),
             "points": at}
 
@@ -376,9 +405,10 @@ def _collectives(cfg, shape, mesh, dtype, plan, variants, real,
         out = {tag: v[shape.seq_len] for tag, v in out.items()}
     else:
         s1, s2 = points
-        keys = ("coll", "counts", "memory")
-        out = {tag: {**v[s2], **{k: _affine(v[s1][k], v[s2][k], s1, s2,
-                                            shape.seq_len) for k in keys}}
+        out = {tag: {**v[s2], "points": v,
+                     **{k: _affine(v[s1][k], v[s2][k], s1, s2,
+                                   shape.seq_len)
+                        for k in ("coll", "counts")}}
                for tag, v in out.items()}
     return out, (f"{where} under a fake process group of {n} ranks, "
                  f"extrapolated over the variants"), whole
@@ -402,6 +432,87 @@ MEMORY_KEYS = ("output_size_in_bytes", "temp_size_in_bytes",
                "alias_size_in_bytes")
 
 
+def _units(cfg: ModelConfig) -> int:
+    """The remat units ``transformer`` marks: Zamba2 segments, else
+    layers."""
+    if cfg.pattern == "mamba" and cfg.attn_every:
+        return T._zamba_segments(cfg)[0]
+    return cfg.num_layers
+
+
+def _stage_kind(stage: str, n: int, n_real: int):
+    """A stage of a variant with n units, named as at the real depth's
+    n_real: unit 0 and the last unit keep their place, and a unit between
+    is None.  A unit's moments differ from unit to unit only by what the
+    units before it saved and the units after it left (their inputs,
+    their gradients), affine in its index, so each peaks at unit 0 or
+    the last."""
+    head, sep, i = stage.rpartition(": unit ")
+    if not sep or int(i) == 0:
+        return stage
+    return f"{head}: unit {n_real - 1}" if int(i) == n - 1 else None
+
+
+def _fit_memory(runs: dict, cfg: ModelConfig, plan, s: int) -> tuple:
+    """One device's memory sizes and temp by stage at sequence length s,
+    from ``runs`` {(variant tag, S): a memory count} at the two lengths
+    of ``SEQ_POINTS`` -- of the real depth (tag ``"real"``) or of both
+    depth variants of ``plan``.  Each moment's live bytes (and the new
+    outputs') are fit affinely in S, then over the variants
+    (``_extrapolate``): a + b L + c S + e L S, which the 2 x 2 grid
+    determines; the temp is the largest less the new outputs.  A stage
+    whose moments differ in number between the variants -- the gradient
+    reduction and AdamW walk the parameters one at a time, so theirs
+    grow with the depth (never with S) -- is fit by its peak.  Raises
+    where two lengths' moments do not match one to one, or where a run's
+    peak lies in no moment it kept (a loop iteration between the kept
+    ones)."""
+    n_real = _units(cfg)
+    units = {tag: _units(vcfg) for tag, vcfg in plan}
+    s1, s2 = sorted({p for _, p in runs})
+    stages: dict = {}                 # run -> stage -> {moment: live}
+    for (tag, p), run in runs.items():
+        live = run["moments"]["live"]
+        peak = max(live.values(), default=0) - run["moments"]["new"]
+        if max(peak, 0) != run["memory"]["temp_size_in_bytes"]:
+            raise ValueError(f"memory fit: the peak of variant {tag} at S "
+                             f"{p} lies in no kept moment")
+        by = stages[(tag, p)] = {}
+        for key, v in live.items():
+            kind = key[0] if tag == "real" \
+                else _stage_kind(key[0], units[tag], n_real)
+            if kind is not None:
+                m = by.setdefault(kind, {})
+                m[key[1:]] = max(m.get(key[1:], v), v)
+    for tag in {t for t, _ in runs}:
+        a, b = stages[(tag, s1)], stages[(tag, s2)]
+        if {k: set(v) for k, v in a.items()} \
+                != {k: set(v) for k, v in b.items()}:
+            raise ValueError(f"memory fit: variant {tag}'s moments at S "
+                             f"{s1} and {s2} do not match one to one")
+
+    def fit(vals):
+        per = {tag: _affine(vals[(tag, s1)], vals[(tag, s2)], s1, s2, s)
+               for tag, _ in runs}
+        return per["real"] if "real" in per else _extrapolate(per, cfg)
+    new = fit({r: run["moments"]["new"] for r, run in runs.items()})
+    temps = {}
+    for kind in next(iter(stages.values())):
+        each = [by[kind] for by in stages.values()]
+        if all(set(m) == set(each[0]) for m in each):
+            temps[kind] = max(fit({r: by[kind][k]
+                                   for r, by in stages.items()})
+                              for k in each[0]) - new
+        else:
+            temps[kind] = fit({r: max(by[kind].values())
+                               for r, by in stages.items()}) - new
+    sizes = {k: int(round(fit({r: run["memory"][k]
+                                for r, run in runs.items()})))
+             for k in ("output_size_in_bytes", "alias_size_in_bytes")}
+    sizes["temp_size_in_bytes"] = max(int(round(max(temps.values()))), 0)
+    return sizes, {k: int(round(v)) for k, v in temps.items()}
+
+
 def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
                *, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Count the real cell and the two depth variants; return the record
@@ -410,11 +521,6 @@ def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
     n = int(mesh.devices.size)
     points = _seq_points(cfg, shape)
     real = _measure_at(cfg, shape, mesh, dtype, points, memory=n == 1)
-    direct = n == 1 and points is not None \
-        and shape.seq_len <= SEQ_MEMORY_DIRECT
-    if direct:
-        real["memory"] = _measure(cfg, shape, mesh, dtype,
-                                  memory=True)["memory"]
     plan = _variant_plan(cfg)
     variants = {tag: _measure_at(vcfg, shape, mesh, dtype, points)
                 for tag, vcfg in plan}
@@ -426,27 +532,37 @@ def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
                 for t, m in ms.items()}
         return _extrapolate(vals, cfg)
 
-    coll_true = coll_counts = None
+    coll_true = coll_counts = stages = None
     memory = dict.fromkeys(MEMORY_KEYS)
     depth = [tag for tag, _ in plan]
-    bound = (f"; a lower bound where the step's peak moves to another "
-             f"stage past S {points[1]} (train: a block's recompute)"
-             if points and shape.mode == "train" else "")
-    if n == 1:
-        memory.update({k: int(round(v)) for k, v in real["memory"].items()})
-        note = "the real depth's plain meta pass (one device)" + (
-            f", affinely in the sequence length from {list(points)}"
-            f"{bound}" if points and not direct else "")
+    fit = (f"the largest of the step's stage peaks, each fit in S from "
+           f"{list(points)} moment by moment") if points else ""
+    if n == 1 and points:
+        sizes, stages = _fit_memory(
+            {("real", p): m for p, m in real["points"].items()}, cfg,
+            plan, shape.seq_len)
+        memory.update(sizes)
+        note = f"the real depth's plain meta pass (one device): {fit}"
+    elif n == 1:
+        memory.update(real["memory"])
+        stages = real["stage_temps"]
+        note = "the real depth's plain meta pass (one device)"
     elif whole is not None:
         memory.update(whole["memory"])
+        stages = whole["stage_temps"]
         note = "the real depth's DTensor pass (one device's local tensors)"
+    elif coll is not None and points:
+        sizes, stages = _fit_memory(
+            {(tag, p): m for tag, v in coll.items()
+             for p, m in v["points"].items()}, cfg, plan, shape.seq_len)
+        memory.update(sizes)
+        note = (f"{fit} and over the depth variants {depth} (one device's "
+                f"local tensors)")
     elif coll is not None:
         memory.update({k: int(round(extract(coll, "memory", k)))
                        for k in MEMORY_KEYS})
-        note = (f"extrapolated over the depth variants {depth}"
-                + (f" and, in each, affinely in the sequence length "
-                   f"from {list(points)}" if points else "")
-                + f" (one device's local tensors){bound}")
+        note = (f"extrapolated over the depth variants {depth} (one "
+                f"device's local tensors)")
     else:
         note = "not counted: the DTensor pass did not run (collectives)"
     if coll is not None:
@@ -476,6 +592,7 @@ def lower_cell(cfg: ModelConfig, shape: InputShape, mesh, mesh_name: str,
                    **memory, "generated_code_size_in_bytes": None},
         "memory_note": f"{note}; generated code: none, nothing is "
                        f"compiled",
+        "memory_stages": stages,
         "collective_bytes": coll_true,
         "collective_counts": coll_counts,
         "collectives": why,

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis import hlo
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -131,6 +132,24 @@ def _remat(cfg: ModelConfig, train: bool, fn):
     if not (train and cfg.remat == "block"):
         return fn
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _mark_unit(x, i: int) -> None:
+    """Before remat unit i (a block, or a Zamba2 segment) on x: its
+    forward begins, and when x's gradient is complete its backward is
+    done and unit i - 1's (or the embedding's) begins.
+    ``analysis/hlo.py``'s stage marks: nothing is dispatched, and off the
+    dry-run's memory count nothing is registered."""
+    hlo.mark(f"forward: unit {i}")
+    hlo.mark_at_grad(x, f"backward: unit {i - 1}" if i
+                     else "backward: embedding")
+
+
+def _mark_head(x, n: int) -> None:
+    """After the last of n units: the head and loss begin, and their
+    backward ends when x's gradient is complete (``_mark_unit``)."""
+    hlo.mark("head")
+    hlo.mark_at_grad(x, f"backward: unit {n - 1}")
 
 
 def _stack(trees: list):
@@ -285,9 +304,11 @@ def _walk(cfg, params, x, positions, cache: Cache | None, decode: bool,
         if cache is not None:
             st = _layer(cache.kv if kind in ("attn_mlp", "attn_moe")
                         else cache.rwkv if kind == "rwkv" else cache.ssm, i)
+        _mark_unit(x, i)
         x, st_o, a = block(_layer(params["blocks"], i), x, st)
         aux = aux + a
         states.append(st_o)
+    _mark_head(x, cfg.num_layers)
     return x, aux, states
 
 
@@ -372,9 +393,11 @@ def _zamba_forward(cfg, params, x, positions, cache: Cache | None,
         sts = [None if cache is None else _layer(cache.ssm, s * k + j)
                for j in range(k)]
         skv = None if cache is None else _layer(cache.shared_kv, s)
+        _mark_unit(x, s)
         x, aux, sts, skv = segment(s, x, aux, sts, skv)
         ssm_out += sts
         skv_out.append(skv)
+    _mark_head(x, n_seg)
     if cache is None:
         return x, None, aux
     return x, Cache(pos=cache.pos + positions.shape[1],

@@ -486,7 +486,14 @@ def test_memory_counter_is_exact_on_a_toy_step():
     (2000 B, read through a view of a), a freed, c (4000 B), x updated
     in place.  Live bytes: 4000, 6000, 2000, 6000 -> peak 6000; the step
     returns c (new) and x (an argument): output 8000, alias 4000, temp
-    6000 - 4000."""
+    6000 - 4000.
+
+    The same step in two marked stages, with an e (4000 B) made from c
+    and returned in its place: "start" holds a (live 4000), "one" begins
+    at 4000 and adds b (6000), "two" begins after a is freed (2000) and
+    adds c (6000) and e (8000).  Less e, the new output: stage temps 0,
+    2000 and 4000; the global temp, 4000, is the largest; each moment
+    (a stage's beginning, an allocation) keeps its live bytes."""
     def step(x):
         a = x * 2
         b = a[:500] * 3
@@ -499,6 +506,65 @@ def test_memory_counter_is_exact_on_a_toy_step():
     assert mem == {"output_size_in_bytes": 8000,
                    "temp_size_in_bytes": 2000,
                    "alias_size_in_bytes": 4000}
+
+    def marked(x):
+        a = x * 2
+        hlo.mark("one")
+        b = a[:500] * 3
+        del a
+        hlo.mark("two")
+        c = torch.cat([b, b])
+        del b
+        e = c * 2
+        x.add_(1)
+        return e, x
+    res = hlo.count_cost(marked, x, memory=True)
+    assert res["memory"] == {"output_size_in_bytes": 8000,
+                             "temp_size_in_bytes": 4000,
+                             "alias_size_in_bytes": 4000}
+    assert res["stage_temps"] == {"start": 0, "one": 2000, "two": 4000}
+    assert res["moments"] == {
+        "live": {("start", 0): 4000, ("one", 0): 4000, ("one", 1): 6000,
+                 ("two", 0): 2000, ("two", 1): 6000, ("two", 2): 8000},
+        "new": 4000}
+    hlo.mark("outside")            # nothing counts: nothing happens
+
+
+def test_loop_moments_are_keyed_alike_at_every_trip_count():
+    """A loop of n trips whose body is a ``loop_body``: s (4000 B) made,
+    then each trip makes s2 = 2 s (4000) and o (40) while the old s
+    lives, and the old s goes; then y = cat of the n o's.  By hand: the
+    trip-j moments 8000 + 40 j and 8040 + 40 j (kept for j = 0, 1 and
+    the last two, keyed -2, -1 from the end), y's 4000 + 80 n; the keys
+    are the same at every n >= 4 and each value is affine in n."""
+    import types
+
+    def body(s):
+        s2 = s * 2
+        return s2, s2[:10] * 1
+    ns = types.SimpleNamespace(body=body)
+
+    def step(x, n):
+        s, outs = x * 1, []
+        for _ in range(n):
+            s, o = ns.body(s)
+            outs.append(o)
+        return torch.cat(outs)
+    x = torch.empty(1000, device="meta")
+    got = {}
+    for n in (5, 9, 13):
+        with hlo.loop_body(ns, "body"):
+            got[n] = hlo.count_cost(lambda x: step(x, n), x,
+                                    memory=True)["moments"]["live"]
+    assert got[5] == {("start", 0): 4000,
+                      ("start", 1, 0, 0): 8000, ("start", 1, 0, 1): 8040,
+                      ("start", 1, 1, 0): 8040, ("start", 1, 1, 1): 8080,
+                      ("start", 1, -2, 0): 8120, ("start", 1, -2, 1): 8160,
+                      ("start", 1, -1, 0): 8160, ("start", 1, -1, 1): 8200,
+                      ("start", 1): 4400}
+    assert set(got[9]) == set(got[5]) == set(got[13])
+    assert all(got[13][k] == 2 * got[9][k] - got[5][k] for k in got[5])
+    assert ns.body is body                     # restored on exit
 
 
 def test_rwkv_sequence_extrapolation_is_exact(monkeypatch):
