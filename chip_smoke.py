@@ -14,17 +14,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
    dequantize kernel may have a stack frame or spill (``-Xptxas -v``,
    ``cuobjdump -sass``);
 3. hold the conv kernels against their plain PyTorch version at every
-   distinct conv (and fused conv+act+pool) shape of AlexNet, VGG16 and
-   MobileNetV2 at 224 px, batch 1, of AlexNet and MobileNetV2 at batch
+   distinct conv (and fused conv+act+pool) shape of the five served CNNs
+   (AlexNet, VGG11, VGG13, VGG16, MobileNetV2) at 224 px, batches 1 and
    4, of AlexNet at 64 and 96 px, batches 1-4 (phase 13a's examples),
    each with every cut end, and of two depthwise convs with a fused pool,
    fp32 (1e-4 of scale)
-   and bf16 (2e-2 of scale); outside VGG16 every fused conv equals the
-   unfused conv followed by its activation and pool, bitwise, and at
-   every shape a batch-4 launch equals four batch-1 launches, bitwise;
+   and bf16 (2e-2 of scale); every fused conv equals the unfused conv
+   followed by its activation and pool, bitwise (bf16's rounding
+   commutes with relu, relu6's clip and max-pool), and at every shape a
+   batch-4 launch equals four batch-1 launches, bitwise;
 4. hold the int8 codec against its plain version, bitwise, fp32 and
-   bf16, at every boundary shape the main path's plans pick (batch-1
-   microbatches), at every batch-4 boundary of every model's int8 plans
+   bf16, at every boundary a cut of a served model can leave at batch 1
+   and 4 (so every boundary any plan, policy, re-pick or merge of phases
+   5 and 9 picks), at every batch-4 boundary of every model's int8 plans
    (K 2 and 3), at the per-tensor flattens (4, 4096) and (4, 9216), at
    the transformer split's per-feature boundary (B*S, d, 1) = (512, 2560,
    1) and (128, 2560, 1) (phase 12's, whole batch and a microbatch), at the
@@ -33,14 +35,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
    size 1, 2, 4, 8 must be checked, the flattens and (4, 32, 28, 28) must
    take more than one CTA a group, and every slice must be held in
    registers (x read once);
-5. the main path: ``repro_torch.launch.serve.serve_cnn`` for AlexNet and
-   MobileNetV2 at 224 px, batch 4 -- K=2 with the follow wire, K=3 with
-   M=4 and the int8 wire, and K=3 with M=4 under 30% drops -- with the
-   launch counts set to 0 just before and read just after; each of its
-   kernels (conv, codec) must have launched.  Then split-vs-monolithic
-   logits are checked bitwise on the card, and each run is repeated on
-   the CPU: logits within 1e-3 of scale (follow wire) or the same top-1
-   (int8 wire);
+5. the main path: ``repro_torch.launch.serve.serve_cnn`` for the five
+   CNNs at 224 px, batch 4 -- K=2 with the follow wire, K=3 with M=4 and
+   the int8 wire, and K=3 with M=4 under 30% drops at ``--dtype fp32``,
+   the first two at ``--dtype bf16`` too -- with the launch counts set to
+   0 just before and read just after and every conv and codec geometry
+   recorded; each of its kernels (conv, codec) must have launched, each
+   run its own (the depthwise conv in MobileNetV2's alone), and every
+   geometry must be one that phases 3-4 held against the plain version.
+   Then split-vs-monolithic logits are checked bitwise on the card, and
+   each run is repeated on the CPU: logits within 1e-3 (fp32) or 2e-2
+   (bf16) of scale (follow wire), the same top-1 (int8 wire, fp32), or
+   within 2e-2 of scale and the same top-1 where the CPU's top-2 margin
+   decides it (int8 wire, bf16: ``check_against_cpu``);
 6. time every kernel against its plain version and the PyTorch library
    call (``F.conv2d``, fp32 and bf16; ``torch.mul`` for dequantize; none
    for quantize;
@@ -53,9 +60,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (``split_boundary`` in the kernels line) -- (CUDA graphs of
    back-to-back launches, CUDA events, warm L2, in turns), and print one
    ``{"kernels": [...]}`` JSON line with each kernel's launches, error,
-   times and bound.  It runs after phases 10 and 12 (and before phase 11,
-   whose heavy training stays out of the kernel timings), since it times
-   phase 7's shapes too;
+   times and bound.  Apart from those sums, VGG16's batch-4 224 px
+   forward: its dense convs (kernel, bound, ``F.conv2d``) and the whole
+   forward in a CUDA graph (device time with no host gap), fp32 and bf16,
+   beside phase 5's ms a request.  It runs after phases 10 and 12 (and
+   before phase 11, whose heavy training stays out of the kernel
+   timings), since it times phase 7's shapes too;
 7. the sequence kernels' path: ``repro_torch.kernels.ops`` at batch 2, in
    fp32 and bf16, with the launch counts set to 0 just before and read
    just after -- ``flash_attention_gqa`` (causal) at Qwen3-4B's widths (32
@@ -75,53 +85,64 @@ Phases, in order; any failed check raises and the script exits non-zero:
    scale is each output row's own (its largest |value| over the last
    dim, at least the RMS of the whole output);
 9. the CNN stream path: ``repro_torch.launch.serve.serve_cnn_stream`` for
-   AlexNet and MobileNetV2 at 224 px, 16 single-sample requests in batch
-   buckets of 4 -- K=3 with the int8 wire pipelined, K=2 with the follow
-   wire sequential (``--no-pipeline``), K=3 int8 under 30% drops, K=3
-   int8 under the ``crash`` tier-fault profile -- with the launch counts
-   set to 0 just before and read just after.  Each pipelined run's served
-   requests must equal their samples alone through the chain at batch 1
-   on the card, bitwise; each run's conv kernels (and, on the int8 wire,
-   both codec kernels) must have launched; each run's ``stats()`` must
-   equal the same stream's on the CPU, key for key (counts, virtual times,
-   hop bytes), and its logits the CPU's (1e-3 of scale, follow wire; the
-   same top-1, int8 wire).  Prints wall ms per request and the virtual
-   req/s, p50 and p99;
+   the five CNNs at 224 px, 16 single-sample requests in batch buckets of
+   4 -- K=3 with the int8 wire pipelined, K=2 with the follow wire
+   sequential (``--no-pipeline``), K=3 int8 under 30% drops, K=3 int8
+   under the ``crash`` tier-fault profile at fp32, the first two at bf16
+   too -- with the launch counts set to 0 just before and read just after
+   and every geometry recorded (each one phases 3-4 held). Each pipelined
+   run's served requests must equal their samples alone through the chain
+   at batch 1 on the card, bitwise; each run's conv kernels (and, on the
+   int8 wire, both codec kernels) must have launched; each run's
+   ``stats()`` must equal the same stream's on the CPU, key for key
+   (counts, virtual times, hop bytes), and its logits the CPU's as phase 5
+   holds them. Prints wall ms per request and the virtual req/s, p50 and
+   p99;
 10. the transformer decode path: Qwen3-4B at full width and depth (fp32,
    weights from a seeded generator on the card) serves 8 greedy requests
    through ``repro_torch.serving.engine.Engine`` (tokens/s printed),
-   decode steps alone at batch 4 are timed on CUDA events, and
-   prefill of n+1 tokens equals prefill of n plus one ``decode_step`` to
-   1e-3 of a row's scale; RWKV6-7B, Zamba2-7B (one shared-block
-   application), Granite-MoE-3B and HuBERT-XLarge at full width and cut
-   depth hold their card prefill logits and one decode step (HuBERT:
-   forward only) to the same weights on the CPU to 1e-3 of a row's scale,
-   and the MoE prefill is bitwise the same twice; no kernel of the port
-   launches on this path (its mixers are plain torch, as the JAX
-   package's are plain jnp).  The energy meter (phase 14's) reads the
-   served pass (the 8 prompts served again, as often as the meter's 2 s
-   window needs) and the decode steps alone (8 from one prefilled cache,
-   as often): joules a token, a pass and a step, total and above phase
-   14's idle floor, and the mean watts;
-11. the training path, after phase 6's timing, all in strict fp32:
-   Qwen3-4B at full width and depth (4.42 B parameters) trained for 4
-   steps by ``repro_torch.training.train_loop.train`` at the JAX
+   decode steps alone at batch 4 are timed on CUDA events, and prefill of
+   n+1 tokens equals prefill of n plus one ``decode_step`` to 1e-3 of a
+   row's scale; RWKV6-7B, Zamba2-7B (one shared-block application),
+   Granite-MoE-3B and HuBERT-XLarge at full width and cut depth hold their
+   card prefill logits and one decode step (HuBERT: forward only) to the
+   same weights on the CPU to 1e-3 of a row's scale, and the MoE prefill
+   is bitwise the same twice; then Qwen3-4B at full width and depth with
+   bf16 params and a bf16 cache serves the 8 prompts (tokens/s, ms a
+   pass), and at 2 layers, bf16, holds its prefill logits and one decode
+   step to the CPU's within 2e-2 of a row's scale; no kernel of the port
+   launches on this path (its mixers are plain torch, as the JAX package's
+   are plain jnp). The energy meter (phase 14's) reads the served pass
+   (the 8 prompts served again, as often as the meter's 2 s window needs)
+   and the decode steps alone (8 from one prefilled cache, as often):
+   joules a token, a pass and a step, total and above phase 14's idle
+   floor, and the mean watts;
+11. the training path, after phase 6's timing, in strict fp32 and then at
+   bf16: Qwen3-4B at full width and depth (4.42 B parameters) trained for
+   4 steps by ``repro_torch.training.train_loop.train`` at the JAX
    package's ``TrainConfig`` defaults (batch 8 x 128 tokens of
    ``SyntheticLM``): every loss and grad norm finite, the step-0 loss
    below ln(padded vocab) + 2, every leaf moved; prints ms a step over
    steps 1-3, tokens/s, the optimizer's ms a step and the peak memory
    beside 16 B a parameter, and the meter's joules a step and a token,
-   total and above the idle floor, and the mean watts, over repeats of
-   one warm step after step 3 (its batch, going on from its params and
-   optimizer state) until the window lasts the meter's 2 s.  Then
-   Qwen3-4B (2 layers), RWKV6-7B (2), Zamba2-7B (6), Granite-MoE-3B (2) and HuBERT-XLarge (2) at full
-   width, batch 2 x 16 tokens, 2 steps on the card and on the CPU from
-   the same weights: losses and grad norms within 1e-4 relative, step 0's
-   grads within 1e-4 of each leaf's largest |value|, a second card run
-   bitwise equal; and the Qwen3-4B run checkpointed after step 1,
-   restored into fresh tensors on the card, takes step 2 to the
-   uninterrupted run's loss and params bitwise.  No kernel of the port
-   launches on this path;
+   total and above the idle floor, and the mean watts, over repeats of one
+   warm step after step 3 (its batch, going on from its params and
+   optimizer state) until the window lasts the meter's 2 s. Then Qwen3-4B
+   (2 layers), RWKV6-7B (2), Zamba2-7B (6), Granite-MoE-3B (2) and
+   HuBERT-XLarge (2) at full width, batch 2 x 16 tokens, 2 steps on the
+   card and on the CPU from the same weights: losses and grad norms within
+   1e-4 relative, step 0's grads within 1e-4 of each leaf's largest
+   |value|, a second card run bitwise equal; and the Qwen3-4B run
+   checkpointed after step 1, restored into fresh tensors on the card,
+   takes step 2 to the uninterrupted run's loss and params bitwise. Then,
+   its fp32 state freed, Qwen3-4B at full width and depth trained 3 steps
+   at ``TrainConfig(dtype="bfloat16")`` (the same checks; a leaf stored in
+   bf16 that did not move must lie where half an ulp is at least every
+   update of the warm-up: the RMSNorm scales at 1.0, the embedding rows of
+   tokens the batches never reach), ms a step over steps 1-2, tokens/s and
+   the peak against 12 B a parameter; and Qwen3-4B at 2 layers, bf16, 2
+   steps on the card and the CPU: losses and grad norms within 2e-2
+   relative. No kernel of the port launches on this path;
 12. the SmartSplit executors across devices, after phase 10 and before
    phase 6's timing: Qwen3-4B at full width and depth (fp32, batch 4 x 128
    seeded tokens) split by ``launch.smartsplit_exec.two_stage_apply``
@@ -162,12 +183,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    meter read a step in phases 11 and 10, as a ratio (printed, not
    held: the record's bytes are unfused eager traffic, a bound); (c) the
    dry-run's memory counter
-   (``analysis.hlo.LiveBytes``, a one-device mesh, fp32) against the
-   card's allocator: Qwen3-4B's train cell, arguments + output + temp -
-   alias, against phase 11's peak less what earlier phases held, and
-   one ``make_decode_step`` at full size (batch 4, a 128-slot cache),
-   output + temp - alias, against ``max_memory_allocated`` less
-   ``memory_allocated`` before the step (after one untimed step), and
+   (``analysis.hlo.LiveBytes``, a one-device mesh) against the card's
+   allocator: Qwen3-4B's train cell, arguments + output + temp - alias,
+   fp32 and bf16, each against its phase-11 run's peak less what was held
+   before it, and one ``make_decode_step`` at full size (batch 4, a
+   128-slot cache), fp32 and bf16 params and cache, output + temp -
+   alias, against ``max_memory_allocated`` less ``memory_allocated``
+   before the step (after one untimed step), and
    one train step of each recurrent kind at full width and phase 11's
    cut depth (RWKV6-7B 2 layers, whose token loop keeps a (64, 64) fp32
    state a head, token and sample for the backward; Zamba2-7B 6, one
@@ -255,6 +277,10 @@ SOURCES = {
                    "src/repro/kernels/mamba2_ssd.py:24"),
 }
 CNN_KERNELS = ("conv2d_dense", "conv2d_depthwise", "quantize", "dequantize")
+# the paper's five CNNs, every one served by phases 5 and 9
+SERVED = ("alexnet", "vgg11", "vgg13", "vgg16", "mobilenetv2")
+POLICIES = ("fp32", "bf16")
+POLICY_TOL = {"fp32": LOGIT_TOL, "bf16": BF16_TOL}
 MIXERS = ("flash_attention", "rwkv6_wkv", "mamba2_ssd")
 MIXER_TOL = {("flash_attention", "fp32"): 1e-4, ("rwkv6_wkv", "fp32"): 1e-4,
              ("mamba2_ssd", "fp32"): 2e-4, ("flash_attention", "bf16"): 2e-2,
@@ -358,17 +384,18 @@ def conv_kwargs(call):
 
 
 def phase_conv(torch, F, cnn, kconv, ref, dev):
+    t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(1)
     worst = {}
     rows = []
     n_fused = n_batch = 0
-    # batch 1 (and the int8 runs' microbatches) and the follow-wire runs'
-    # batch 4, where the planner may pick another blocking
+    # every served model at batch 1 (the int8 runs' microbatches, the
+    # pipelined stream's requests) and batch 4 (the follow-wire runs, the
+    # sequential stream's batches), where the planner may pick another
+    # blocking
     at224 = cnn.INPUT_SHAPE
-    cases = conv_cases(cnn, [("alexnet", 1, at224), ("vgg16", 1, at224),
-                             ("mobilenetv2", 1, at224),
-                             ("alexnet", 4, at224),
-                             ("mobilenetv2", 4, at224)] + EXAMPLE_CNNS)
+    cases = conv_cases(cnn, [(m, b, at224) for b in (1, 4)
+                             for m in SERVED] + EXAMPLE_CNNS)
     checked = set()
     for call in cases + DW_POOL_CASES:
         for dname, dtype, tol in (("fp32", torch.float32, FP32_TOL),
@@ -388,8 +415,7 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
             checked.add(conv_key(*(call[k] for k in (
                 "x_shape", "w_shape", "stride", "pad", "groups",
                 "activation", "pool_k", "pool_s"))) + (dname,))
-            fused = call["activation"] is not None or call["pool_k"]
-            if fused and call["model"] != "vgg16":
+            if call["activation"] is not None or call["pool_k"]:
                 plain = dict(kw, activation=None, pool_k=0, pool_s=0)
                 u = ref.activate(kconv.conv2d(x, w, bias=b, **plain),
                                  call["activation"])
@@ -417,7 +443,8 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
           f"passed; {n_fused} fused convs equal their unfused chain "
           f"bitwise; {n_batch} batch-4 launches equal four batch-1 "
           f"launches bitwise; worst abs err " + ", ".join(
-              f"{k}/{d}={v:.3g}" for (k, d), v in sorted(worst.items())))
+              f"{k}/{d}={v:.3g}" for (k, d), v in sorted(worst.items()))
+          + f" ({time.perf_counter() - t0:.1f} s)")
     return worst, rows, checked
 
 
@@ -443,15 +470,19 @@ def boundary_shapes(cnn, core, profiles, batch=4, microbatches=4,
 
 
 def codec_shapes(cnn, core, profiles):
-    """The codec's checked and timed shapes: the main path's microbatch
-    boundaries; every batch-4 boundary of the int8 plans of every model
-    (K 2 and 3, unsplit batch); the per-tensor flattens of AlexNet and VGG's
-    heads; and one shape where the planner takes k = 4, which no boundary
-    above reaches."""
+    """The codec's timed shapes: the microbatch boundaries of AlexNet's and
+    MobileNetV2's fp32 plans; every batch-4 boundary of the fp32 int8
+    plans of every model (K 2 and 3, unsplit batch); the per-tensor
+    flattens of AlexNet and VGG's heads; and one shape where the planner
+    takes k = 4.  Then the checked shapes beyond those: every boundary
+    a cut of a served model can leave at batch 1 and 4, whichever plan,
+    policy, re-pick or merge picks it."""
     micro = boundary_shapes(cnn, core, profiles)
     batch4 = boundary_shapes(cnn, core, profiles, microbatches=1,
                              models=tuple(cnn.CNN_MODELS), tiers=(2, 3))
-    return micro, batch4 + [(4, 4096), (4, 9216)], [(4, 32, 56, 56)]
+    every = sorted({(b,) + tuple(o) for m in SERVED for b in (1, 4)
+                    for o in cnn.shapes_through(cnn.CNN_MODELS[m])[:-1]})
+    return micro, batch4 + [(4, 4096), (4, 9216)], [(4, 32, 56, 56)], every
 
 
 def quickstart_boundary(cnn, core, profiles) -> tuple:
@@ -481,8 +512,10 @@ def phase_codec(torch, kquant, ref, shapes, dev):
     dtype: the int8 values' and the scales' for quantize, the decoded
     values' for dequantize (0 when bitwise equal, which is checked), and
     the quantize plan (cluster size k, staged) of each shape."""
+    t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(2)
     worst, plans = {}, {}
+    shapes = list(dict.fromkeys(map(tuple, shapes)))
     for shape in shapes:
         for dname, dtype in (("fp32", torch.float32),
                              ("bf16", torch.bfloat16)):
@@ -515,11 +548,11 @@ def phase_codec(torch, kquant, ref, shapes, dev):
     for shape in ((4, 4096), (4, 9216), (4, 32, 28, 28)):
         check(plans[(shape, "fp32")]["k"] > 1,
               f"quantize {shape}: a cluster of one CTA")
+    by_k = {k: sum(p["k"] == k for p in plans.values()) for k in ks}
     print(f"phase 4: codec bitwise equal to the plain version, fp32 and "
-          f"bf16, at (shape: cluster k) " + ", ".join(
-              f"{s}: {plans[(s, 'fp32')]['k']}"
-              for s in map(tuple, shapes)) + "; every slice held in "
-          "registers")
+          f"bf16, at {len(shapes)} shapes (plans by cluster k: {by_k}); "
+          f"every slice held in registers "
+          f"({time.perf_counter() - t0:.1f} s)")
     return worst, plans, {codec_key(kquant, s, d) for s, d in plans}
 
 
@@ -535,91 +568,188 @@ RUNS = [  # (label, argv after --cnn <model>)
                       "--wire-dtype", "follow", "--drop", "0.3",
                       "--requests", "3"]),
 ]
+BF16_RUNS = ("K2-follow", "K3-M4-int8")     # the runs served at bf16 too
+
+
+def policy_runs(runs, bf16_labels) -> list[tuple]:
+    """(policy, label, argv with ``--dtype``) of every run of ``runs`` at
+    fp32 and of those named in ``bf16_labels`` at bf16."""
+    return [(policy, label, [*argv, "--dtype", policy])
+            for policy in POLICIES for label, argv in runs
+            if policy == "fp32" or label in bf16_labels]
+
+
+def run_kernels(model: str, argv: list) -> list[str]:
+    """The kernels a served run must launch: the dense conv always, the
+    depthwise conv for MobileNetV2 alone, the codec on the int8 wire."""
+    names = ["conv2d_dense"]
+    if model == "mobilenetv2":
+        names.append("conv2d_depthwise")
+    if "int8" in argv:
+        names += ["quantize", "dequantize"]
+    return names
+
+
+def check_run_launches(what: str, model: str, argv: list, counts: dict):
+    """Each kernel of ``run_kernels`` launched in the run, and no depthwise
+    conv outside MobileNetV2."""
+    for name in run_kernels(model, argv):
+        check(counts[name] > 0, f"{what}: {name} was never launched")
+    if model != "mobilenetv2":
+        check(counts["conv2d_depthwise"] == 0, f"{what}: "
+              f"{counts['conv2d_depthwise']} depthwise conv launches")
+
+
+def new_geometries() -> dict:
+    """The record ``recording_geometries`` fills."""
+    kinds = ("conv", "quantize", "dequantize")
+    seen = {kind: set() for kind in kinds}
+    seen["calls"] = dict.fromkeys(kinds, 0)
+    return seen
+
+
+def check_geometries(what: str, seen: dict, counts: dict, conv_checked,
+                     codec_checked) -> dict:
+    """Every launch recorded with its geometry (``counts``: the launch
+    counts over the same calls), and every geometry one that phases 3-4
+    held against the plain version.  Returns the number of geometries of
+    each kind."""
+    launched = {"conv": counts["conv2d_dense"] + counts["conv2d_depthwise"],
+                "quantize": counts["quantize"],
+                "dequantize": counts["dequantize"]}
+    check(seen["calls"] == launched, f"{what}: {seen['calls']} launches "
+          f"recorded with their geometry, {launched} counted")
+    unchecked = {kind: sorted(seen[kind] - (conv_checked if kind == "conv"
+                                            else codec_checked), key=str)
+                 for kind in launched}
+    check(not any(unchecked.values()), f"{what}: geometries launched that "
+          f"phases 3-4 did not hold against the plain version: {unchecked}")
+    return {kind: len(seen[kind]) for kind in launched}
+
+
+def check_against_cpu(what, policy, int8, got, want) -> tuple:
+    """Hold logits served on the card to the same run's on the CPU: on
+    the follow wire within ``POLICY_TOL`` of scale; on the int8 wire the
+    same top-1 at fp32, and at bf16 within ``BF16_TOL`` of scale and the
+    same top-1 wherever the CPU's top-2 margin exceeds twice the row's
+    error (``top1_agrees``): bf16 logits lie a few ulps apart on the
+    two devices, which round the storage after summing in other orders,
+    and a near tie may flip.  Returns (max abs error, scale, top-1 equal
+    everywhere, rows too close to call)."""
+    err, scale = rel_err(got, want)
+    top1 = bool((got.float().argmax(-1) == want.float().argmax(-1)).all())
+    close = 0
+    if not int8:
+        tol = POLICY_TOL[policy]
+        check(err <= tol * scale, f"{what}: logits differ from the CPU run "
+              f"by {err} > {tol} * {scale}")
+    elif policy == "fp32":
+        check(top1, f"{what}: a top-1 differs from the CPU run")
+    else:
+        decided, close = top1_agrees(got, want)
+        check(decided and err <= BF16_TOL * scale, f"{what}: a top-1 the "
+              f"CPU's margin decides differs from the CPU run, or the "
+              f"logits differ by {err} > {BF16_TOL} * {scale}")
+    return err, scale, top1, close
 
 
 def chain_reference(torch, cnn, quant, layers, params, x, plan_cuts, wires,
-                    slices):
-    """The fault-free logits of a chain run: each microbatch walks the
-    stages, round-tripping the boundary through each hop's wire."""
+                    slices, dtype=None):
+    """The fault-free logits of a chain run at storage policy ``dtype``:
+    each microbatch walks the stages, round-tripping the boundary through
+    each hop's wire."""
     outs = []
     for a, b in slices:
         h = x[a:b]
         edges = [0, *plan_cuts, len(layers)]
         for k in range(len(edges) - 1):
             h = cnn.apply_cnn(layers, params, h, start=edges[k],
-                              stop=edges[k + 1])
+                              stop=edges[k + 1], dtype=dtype)
             if k < len(wires) and wires[k] != "fp32":
                 h = quant.boundary_roundtrip(h, wires[k])
         outs.append(h)
     return torch.cat(outs)
 
 
-def phase_main(torch, cnn, serve, launches, quant, runtime, dev):
-    params = {m: cnn.init_cnn(cnn.CNN_MODELS[m], device=dev)
-              for m in ("alexnet", "mobilenetv2")}
+def phase_main(torch, cnn, serve, launches, quant, runtime, kconv, checked,
+               dev):
+    """``serve_cnn`` for each of the five CNNs at 224 px, batch 4, each of
+    ``RUNS`` at fp32 and those of ``BF16_RUNS`` at bf16, with the launch
+    counts set to 0 just before and read just after and every conv and
+    codec geometry recorded (each must be one of ``checked``: phases
+    3-4's).  Then each run's logits against its fault-free reference on
+    the card, bitwise, and against the same run on the CPU."""
+    t0 = time.perf_counter()
+    params = {m: cnn.init_cnn(cnn.CNN_MODELS[m], device=dev) for m in SERVED}
     torch.cuda.synchronize()
     results = []
+    seen = new_geometries()
     launches.reset()
-    for model in ("alexnet", "mobilenetv2"):
-        for label, argv in RUNS:
-            args = serve.parse_args(["--cnn", model, "--batch", "4",
-                                     "--device", dev.type, *argv])
-            out = serve.serve_cnn(args, params=params[model])
-            results.append((model, label, argv, out))
+    with recording_geometries(torch, kconv, quant, seen):
+        for model in SERVED:
+            for policy, label, argv in policy_runs(RUNS, BF16_RUNS):
+                args = serve.parse_args(["--cnn", model, "--batch", "4",
+                                         "--device", dev.type, *argv])
+                out = serve.serve_cnn(args, params=params[model], quiet=True)
+                results.append((model, policy, label, argv, out))
     counts = {n: launches.snapshot()[n] for n in CNN_KERNELS}
     print(f"phase 5: main path launches {json.dumps(counts)}")
     for name, n in counts.items():
         check(n > 0, f"{name} was never launched on the main path")
+    geometries = check_geometries("phase 5", seen, counts, *checked)
 
     summary = []
     cpu_params = {m: cnn.init_cnn(cnn.CNN_MODELS[m], device="cpu")
                   for m in params}
-    for model, label, argv, out in results:
+    for model, policy, label, argv, out in results:
         r, rt = out["result"], out["runtime"]
+        what = f"phase 5 {model} {policy} {label}"
+        check_run_launches(what, model, argv, out["launches"])
         layers = cnn.CNN_MODELS[model]
         slices = runtime.microbatch_slices(out["x"].shape[0],
                                            rt.microbatches)
         int8 = "int8" in argv
         if int8:
-            check(not r.degraded, f"{model} {label}: clean run degraded")
+            check(not r.degraded, f"{what}: clean run degraded")
             want = chain_reference(torch, cnn, quant, layers, params[model],
-                                   out["x"], r.cuts, rt.wire_dtypes, slices)
+                                   out["x"], r.cuts, rt.wire_dtypes, slices,
+                                   policy)
         else:
             want = torch.cat([cnn.apply_cnn(layers, params[model],
-                                            out["x"][a:b])
+                                            out["x"][a:b], dtype=policy)
                               for a, b in slices])
         check(torch.equal(r.logits, want),
-              f"{model} {label}: split logits != monolithic on the card")
+              f"{what}: split logits != monolithic on the card")
         args = serve.parse_args(["--cnn", model, "--batch", "4",
                                  "--device", "cpu", *argv])
         cpu = serve.serve_cnn(args, params=cpu_params[model], quiet=True)
         c = cpu["result"]
         check(c.cuts == r.cuts and c.attempts == r.attempts,
-              f"{model} {label}: CPU run took another path")
-        err, scale = rel_err(r.logits.cpu(), c.logits)
-        top1 = bool(torch.equal(r.logits.float().argmax(1).cpu(),
-                                c.logits.float().argmax(1)))
-        if int8:
-            check(top1, f"{model} {label}: top-1 differs from the CPU run")
-        else:
-            check(err <= LOGIT_TOL * scale,
-                  f"{model} {label}: logits differ from the CPU run by "
-                  f"{err} > {LOGIT_TOL} * {scale}")
+              f"{what}: CPU run took another path")
+        err, scale, top1, close = check_against_cpu(
+            what, policy, int8, r.logits.cpu(), c.logits)
         s = rt.stats()
-        row = dict(model=model, run=label, cuts=list(r.cuts),
+        row = dict(model=model, policy=policy, run=label, cuts=list(r.cuts),
                    requests=s["requests"], seconds=out["seconds"],
                    ms_per_request=1e3 * out["seconds"] / s["requests"],
                    attempts=[h["attempts"] for h in s["hops"]],
                    dropped=[h["link"]["dropped"] for h in s["hops"]],
+                   wire_bytes=[h["wire_bytes"] for h in s["hops"]],
                    merges=s["merges"], repicks=s["repicks"],
                    cpu_max_abs_err=err, scale=scale, top1_equal=top1,
-                   split_equals_monolithic=True, launches=out["launches"])
+                   top1_too_close=close, split_equals_monolithic=True,
+                   launches=out["launches"])
         summary.append(row)
-        print(f"  {model} {label}: cuts={row['cuts']} "
+        print(f"  {model} {policy} {label}: cuts={row['cuts']} "
               f"{row['ms_per_request']:.2f} ms/request (host clock) "
               f"split==monolithic bitwise, vs CPU max abs err {err:.3g} "
-              f"(scale {scale:.3g}), top-1 equal {top1}")
-    return counts, summary
+              f"(scale {scale:.3g}), top-1 equal {top1} ({close} too close "
+              f"to call); launches "
+              + json.dumps({n: c for n, c in out["launches"].items() if c}))
+    print(f"phase 5: every geometry launched ({geometries}) was held "
+          f"against the plain version in phases 3-4; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts, summary, geometries
 
 
 # ---------------------------------------------------------------------------
@@ -819,6 +949,53 @@ def phase_time(torch, F, cnn, kconv, kquant, ref, shapes, dev):
             codec_time(torch, kquant, ref, shape, dname, dtype, gen, dev,
                        agg, rows)
     return agg, rows
+
+
+def phase_time_vgg16(torch, F, cnn, kconv, main_rows, dev) -> dict:
+    """VGG16's batch-4 224 px forward apart from rows 1-2's sums: each of
+    its 13 dense convs, kernel against ``F.conv2d``, with its bound, at
+    fp32 and bf16 (phase 6's method), and the whole forward
+    (``apply_cnn``, monolithic) captured in a CUDA graph: the device's
+    time for a request's work with no host gap.  Printed beside phase
+    5's host ms a request of VGG16's K=2 follow run at each policy."""
+    gen = torch.Generator().manual_seed(6)
+    layers = cnn.CNN_MODELS["vgg16"]
+    params = cnn.init_cnn(layers, device=dev)
+    x = torch.randn((4,) + cnn.INPUT_SHAPE, generator=gen).to(dev)
+    out = {}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        row = dict(ms=0.0, library_ms=0.0, bound_ms=0.0, flop_ms=0.0,
+                   byte_ms=0.0, calls=0)
+        for call in cnn.conv_launches(layers, batch=4):
+            kw = conv_kwargs(call)
+            cx, cw, cb = make_inputs(torch, call, dtype, gen, dev)
+            t = in_turns({
+                "ms": Timer(torch, lambda: kconv.conv2d(cx, cw, bias=cb,
+                                                        **kw)),
+                "library_ms": Timer(torch, lambda: F.conv2d(
+                    cx, cw, cb.to(dtype), stride=call["stride"],
+                    padding=call["pad"]))})
+            t_f, t_b, _ = conv_bound(call, dname)
+            row["ms"] += t["ms"]
+            row["library_ms"] += t["library_ms"]
+            row["flop_ms"] += 1e3 * t_f
+            row["byte_ms"] += 1e3 * t_b
+            row["bound_ms"] += 1e3 * max(t_f, t_b)
+            row["calls"] += 1
+        row["forward_device_ms"] = Timer(torch, lambda: cnn.apply_cnn(
+            layers, params, x, dtype=dname), reps=5).ms()
+        req = [r for r in main_rows if r["model"] == "vgg16"
+               and r["policy"] == dname and r["run"] == "K2-follow"]
+        row["request_host_ms"] = req[0]["ms_per_request"]
+        out[dname] = row
+    print(f"phase 6: vgg16, batch 4, 224 px ({card_line()}): " + "; ".join(
+        f"{d}: {r['calls']} dense convs {r['ms']:.3f} ms (bound "
+        f"{r['bound_ms']:.3f} ms, F.conv2d {r['library_ms']:.3f} ms), the "
+        f"whole forward {r['forward_device_ms']:.3f} ms of device time "
+        f"(CUDA graph), phase 5's K=2 follow request "
+        f"{r['request_host_ms']:.2f} ms (host clock)"
+        for d, r in out.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1150,70 +1327,68 @@ STREAM_RUNS = [  # (label, argv after --cnn <model> STREAM_ARGS)
 ]
 
 
-def stream_kernels(model: str, argv: list) -> list[str]:
-    """The kernels a stream run must launch."""
-    names = ["conv2d_dense"]
-    if model == "mobilenetv2":
-        names.append("conv2d_depthwise")
-    if "int8" in argv:
-        names += ["quantize", "dequantize"]
-    return names
+BF16_STREAM_RUNS = ("K3-int8", "K2-follow-seq")
 
 
-def request_reference(torch, cnn, quant, layers, params, req, rt):
+def request_reference(torch, cnn, quant, layers, params, req, rt, dtype):
     """The logits of a request's sample alone, at batch 1, through the
     chain under the cuts its batch planned and under the cuts it finished
     under (a stage merge or a failover inside a batch moves the later
     requests to the latter), each boundary round-tripped through the
-    wire (one format on every hop).  One of them must equal the served
-    logits bitwise."""
+    wire (one format on every hop), at storage policy ``dtype``.  One of
+    them must equal the served logits bitwise."""
     res = req.result
     wire = set(rt.wire_dtypes)
     check(len(wire) == 1, f"phase 9: hops ship {wire}, not one format")
     return [chain_reference(torch, cnn, quant, layers, params, req.x[None],
-                            cuts, [*wire] * len(cuts), [(0, 1)])[0]
+                            cuts, [*wire] * len(cuts), [(0, 1)], dtype)[0]
             for cuts in dict.fromkeys((tuple(res.planned_cuts),
                                        tuple(res.cuts)))]
 
 
-def phase_stream(torch, cnn, serve, launches, quant, dev):
-    """``serve_cnn_stream`` for AlexNet and MobileNetV2 at 224 px, 16
-    single-sample requests at batch buckets of 4, each of STREAM_RUNS
-    after an untimed warm-up of all of them (the timed runs' shapes), with
-    the launch counts set to 0 just before and read just after.
-    Checks (a) every served request of a pipelined run bitwise equal to
-    its sample alone through the chain at batch 1 on the card, (b) each
-    run's kernels launched, (c) each run's ``stats()`` equal to the same
-    stream's on the CPU (counts, virtual times, hop bytes), and every
-    request's logits within 1e-3 of the CPU's (follow wire) or of the same
-    top-1 (int8 wire)."""
-    models = ("alexnet", "mobilenetv2")
-    params = {m: cnn.init_cnn(cnn.CNN_MODELS[m], device=dev) for m in models}
+def phase_stream(torch, cnn, serve, launches, quant, kconv, checked, dev):
+    """``serve_cnn_stream`` for each of the five CNNs at 224 px, 16
+    single-sample requests at batch buckets of 4, each of STREAM_RUNS at
+    fp32 and those of ``BF16_STREAM_RUNS`` at bf16, after an untimed
+    warm-up of all of them (the timed runs' shapes), with the launch
+    counts set to 0 just before and read just after and every conv and
+    codec geometry recorded (each must be one of ``checked``: phases
+    3-4's).  Checks (a) every served request of a pipelined run bitwise
+    equal to its sample alone through the chain at batch 1 on the card,
+    (b) each run's kernels launched, (c) each run's ``stats()`` equal to
+    the same stream's on the CPU (counts, virtual times, hop bytes), and
+    every request's logits within 1e-3 (fp32) or 2e-2 (bf16) of scale of
+    the CPU's (follow wire) or of the same top-1 (int8 wire)."""
+    t0 = time.perf_counter()
+    params = {m: cnn.init_cnn(cnn.CNN_MODELS[m], device=dev) for m in SERVED}
     cpu_params = {m: cnn.init_cnn(cnn.CNN_MODELS[m], device="cpu")
-                  for m in models}
-    for model in models:        # warm-up: every timed run's shapes once
-        for _, argv in STREAM_RUNS:
+                  for m in SERVED}
+    runs = policy_runs(STREAM_RUNS, BF16_STREAM_RUNS)
+    for model in SERVED:        # warm-up: every timed run's shapes once
+        for _, _, argv in runs:
             args = serve.parse_args(["--cnn", model, *STREAM_ARGS, *argv,
                                      "--device", dev.type])
             serve.serve_cnn_stream(args, params=params[model], quiet=True)
     torch.cuda.synchronize()
     outs = []
+    seen = new_geometries()
     launches.reset()
-    for model in models:
-        for label, argv in STREAM_RUNS:
-            args = serve.parse_args(["--cnn", model, *STREAM_ARGS, *argv,
-                                     "--device", dev.type])
-            outs.append((model, label, argv,
-                         serve.serve_cnn_stream(args, params=params[model])))
+    with recording_geometries(torch, kconv, quant, seen):
+        for model in SERVED:
+            for policy, label, argv in runs:
+                args = serve.parse_args(["--cnn", model, *STREAM_ARGS,
+                                         *argv, "--device", dev.type])
+                outs.append((model, policy, label, argv,
+                             serve.serve_cnn_stream(args, params=params[model],
+                                                    quiet=True)))
     counts = {n: launches.snapshot()[n] for n in CNN_KERNELS}
     print(f"phase 9: stream path launches {json.dumps(counts)}")
+    geometries = check_geometries("phase 9", seen, counts, *checked)
     rows = []
-    for model, label, argv, out in outs:
+    for model, policy, label, argv, out in outs:
         eng, reqs = out["engine"], out["requests"]
-        what = f"phase 9 {model} {label}"
-        for name in stream_kernels(model, argv):
-            check(out["launches"][name] > 0,
-                  f"{what}: {name} was never launched")
+        what = f"phase 9 {model} {policy} {label}"
+        check_run_launches(what, model, argv, out["launches"])
         s = eng.stats()
         check(s["served"] > 0, f"{what}: nothing served")
         layers = cnn.CNN_MODELS[model]
@@ -1224,7 +1399,7 @@ def phase_stream(torch, cnn, serve, launches, quant, dev):
                     continue
                 rt = eng._buckets[req.bucket].rt
                 refs = request_reference(torch, cnn, quant, layers,
-                                         params[model], req, rt)
+                                         params[model], req, rt, policy)
                 check(any(torch.equal(req.logits, r) for r in refs),
                       f"{what}: request {req.rid} differs from its sample "
                       f"alone through the chain at batch 1")
@@ -1236,7 +1411,7 @@ def phase_stream(torch, cnn, serve, launches, quant, dev):
         cs = cpu["engine"].stats()
         diff = sorted(k for k in set(s) | set(cs) if s.get(k) != cs.get(k))
         check(not diff, f"{what}: stats() differ from the CPU's at {diff}")
-        worst, top1 = 0.0, True
+        worst, top1, close = 0.0, True, 0
         for a, b in zip(reqs, cpu["requests"]):
             check(a.status == b.status, f"{what}: request {a.rid} "
                   f"{a.status} on the card, {b.status} on the CPU")
@@ -1244,15 +1419,12 @@ def phase_stream(torch, cnn, serve, launches, quant, dev):
                 continue
             check(bool(torch.isfinite(a.logits).all()),
                   f"{what}: non-finite logits")
-            err, scale = rel_err(a.logits.cpu(), b.logits)
+            err, scale, same, n = check_against_cpu(
+                f"{what} request {a.rid}", policy, "int8" in argv,
+                a.logits.cpu(), b.logits)
             worst = max(worst, err / scale)
-            top1 = top1 and int(a.logits.argmax()) == int(b.logits.argmax())
-        if "int8" in argv:
-            check(top1, f"{what}: a top-1 differs from the CPU run")
-        else:
-            check(worst <= LOGIT_TOL, f"{what}: logits differ from the "
-                  f"CPU run by {worst} of scale > {LOGIT_TOL}")
-        row = dict(model=model, run=label, served=s["served"],
+            top1, close = top1 and same, close + n
+        row = dict(model=model, policy=policy, run=label, served=s["served"],
                    submitted=s["submitted"], failed=s["failed"],
                    batches=s["batches"], pipelined=s["pipelined"],
                    wall_s=out["seconds"],
@@ -1264,19 +1436,24 @@ def phase_stream(torch, cnn, serve, launches, quant, dev):
                    failovers=s["failovers"],
                    dropped=[h["link"]["dropped"] for h in s["hops"]],
                    bitwise_requests=bitwise, cpu_rel_err=worst,
-                   top1_equal=top1, stats_equal_cpu=True,
+                   top1_equal=top1, top1_too_close=close,
+                   stats_equal_cpu=True,
                    launches=out["launches"])
         rows.append(row)
-        print(f"  {model} {label}: {s['served']}/{s['submitted']} served in "
-              f"{s['batches']} batches, {row['wall_ms_per_request']:.2f} "
-              f"wall ms/request (host clock); virtual "
-              f"{s['requests_per_s']:.1f} req/s, p50 "
+        print(f"  {model} {policy} {label}: {s['served']}/{s['submitted']} "
+              f"served in {s['batches']} batches, "
+              f"{row['wall_ms_per_request']:.2f} wall ms/request (host "
+              f"clock); virtual {s['requests_per_s']:.1f} req/s, p50 "
               f"{s['latency_p50_s'] * 1e3:.1f} ms, p99 "
               f"{s['latency_p99_s'] * 1e3:.1f} ms (virtual clock); "
               f"merges={s['merges']} failovers={s['failovers']}; "
               f"{bitwise} requests bitwise, stats == CPU, "
-              f"vs CPU {worst:.3g} of scale")
-    return counts, rows
+              f"vs CPU {worst:.3g} of scale, top-1 equal {top1}"
+              + (f" ({close} too close to call)" if close else ""))
+    print(f"phase 9: every geometry launched ({geometries}) was held "
+          f"against the plain version in phases 3-4; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts, rows, geometries
 
 
 # ---------------------------------------------------------------------------
@@ -1363,6 +1540,20 @@ def tree_numel(tree) -> int:
     return tree.numel()
 
 
+def serve_greedy(torch, Engine, cfg, params, prompts, dtype, dev) -> tuple:
+    """``prompts`` served greedily, 8 new tokens each, on a new ``Engine``
+    (batch 4, 128 slots, a ``dtype`` cache): the engine, its requests and
+    the host seconds of ``run_until_idle``."""
+    eng = Engine(cfg, params, max_len=128, max_batch=4, dtype=dtype,
+                 device=dev)
+    reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t0
+
+
 def phase_decode(torch, configs, T, Engine, launches, energy, dev):
     """(a) Qwen3-4B at full width and depth, fp32 weights from a seeded
     generator on the card, serving 8 greedy requests of 8-24 prompt
@@ -1377,7 +1568,8 @@ def phase_decode(torch, configs, T, Engine, launches, energy, dev):
     phase 14's (meter, idle W): the meter reads the served pass (the 8
     prompts served again on a fresh engine, as often as the meter's
     window needs) and the decode steps alone (8 steps from the same
-    prefilled cache, as often)."""
+    prefilled cache, as often).  (c) the same Qwen3-4B under the bf16
+    policy (``decode_bf16``): the second row."""
     import dataclasses
 
     import numpy as np
@@ -1392,13 +1584,8 @@ def phase_decode(torch, configs, T, Engine, launches, energy, dev):
                for _ in range(8)]
 
     def serve_prompts():
-        eng = Engine(cfg, params, max_len=128, max_batch=4, device=dev)
-        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run_until_idle()
-        torch.cuda.synchronize()
-        return eng, reqs, time.perf_counter() - t0
+        return serve_greedy(torch, Engine, cfg, params, prompts,
+                            torch.float32, dev)
 
     _, warm, _ = serve_prompts()        # warm-up on the timed shapes
     eng, reqs, dt = serve_prompts()
@@ -1479,7 +1666,7 @@ def phase_decode(torch, configs, T, Engine, launches, energy, dev):
     del params, eng, full, cache, step, dcache, dcache0
     torch.cuda.empty_cache()
 
-    rows = [qwen]
+    rows = [qwen, decode_bf16(torch, configs, T, Engine, prompts, dev)]
     for name, n_layers, fwd_only in BLOCK_KINDS:
         cfg = dataclasses.replace(configs.all_configs()[name],
                                   num_layers=n_layers)
@@ -1532,6 +1719,75 @@ def phase_decode(torch, configs, T, Engine, launches, energy, dev):
     check(not any(counts.values()), f"phase 10 launched kernels {counts}: "
           f"the decode path's mixers are plain torch")
     return rows
+
+
+def decode_bf16(torch, configs, T, Engine, prompts, dev) -> dict:
+    """Phase 10 under the bf16 policy: (a) Qwen3-4B at full width and
+    depth, bf16 params from the seeded generator and a bf16 cache,
+    serving ``prompts`` greedily (8 new tokens each) on a second
+    ``Engine`` after a first served them: the same tokens both times,
+    tokens/s and ms a pass; (b) Qwen3-4B at 2 layers, bf16, its prefill
+    logits and one decode step on the card against the same weights on
+    the CPU, within ``BF16_TOL`` of a row's scale (the bf16 bound of
+    ``tests/test_torch_transformer.py``)."""
+    import dataclasses
+
+    import numpy as np
+
+    bf16 = torch.bfloat16
+    cfg = configs.all_configs()["qwen3-4b"]
+    params = T.init_params(cfg, 0, bf16, dev)
+
+    _, warm, _ = serve_greedy(torch, Engine, cfg, params, prompts, bf16, dev)
+    eng, reqs, dt = serve_greedy(torch, Engine, cfg, params, prompts, bf16,
+                                 dev)
+    check([r.output for r in reqs] == [r.output for r in warm],
+          "phase 10 qwen3-4b bf16: two runs of the same prompts emit "
+          "different tokens")
+    toks = sum(len(r.output) for r in reqs)
+    check(toks == 8 * len(prompts) and all(
+        0 <= t < cfg.padded_vocab for r in reqs for t in r.output),
+        f"phase 10 qwen3-4b bf16: {toks} tokens served, or a token out of "
+        f"range")
+    passes = int(eng.stats["batches"]) * 8
+    row = dict(config="qwen3-4b", dtype="bf16", params=tree_numel(params),
+               requests=len(reqs), batches=int(eng.stats["batches"]),
+               passes=passes, tokens=toks, seconds=dt,
+               tokens_per_s=toks / dt, ms_per_pass=1e3 * dt / passes)
+    del params, eng, warm
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params = T.init_params(cfg2, 0, bf16, dev)
+    rng = np.random.default_rng(10)
+    tok = torch.as_tensor(rng.integers(0, cfg2.vocab_size, (2, 16)))
+    nxt = torch.as_tensor(rng.integers(0, cfg2.vocab_size, (2, 1)))
+    outs = {}
+    for where, p in (("card", params), ("cpu", tree_to(params, "cpu"))):
+        d = dev if where == "card" else torch.device("cpu")
+        logits, cache, _ = T.forward(cfg2, p, {"tokens": tok.to(d)},
+                                     mode="prefill",
+                                     cache=T.init_cache(cfg2, 2, 32, bf16, d))
+        lg, _ = T.decode_step(cfg2, p, nxt.to(d), cache)
+        outs[where] = [logits.cpu(), lg.cpu()]
+    errs = []
+    for got, want in zip(outs["card"], outs["cpu"]):
+        check(bool(torch.isfinite(got).all()),
+              "phase 10 qwen3-4b bf16 2 layers: non-finite logits")
+        errs.append(row_err(got, want)[1])
+    check(max(errs) <= BF16_TOL, f"phase 10 qwen3-4b bf16 2 layers: the card "
+          f"differs from the CPU by {errs} of a row's scale")
+    row.update(layers_2_prefill_rel_err=errs[0],
+               layers_2_decode_rel_err=errs[1])
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 10: qwen3-4b full width and depth, bf16 params and cache: "
+          f"{len(reqs)} requests, {toks} tokens in {row['batches']} "
+          f"batches, {dt:.2f} s, {toks / dt:.1f} tokens/s, "
+          f"{row['ms_per_pass']:.1f} ms a pass (host clock, {card_line()}); "
+          f"2 layers, bf16: card == CPU to {errs[0]:.3g} (prefill), "
+          f"{errs[1]:.3g} (decode step) of a row's scale")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1871,39 +2127,20 @@ def matmul_flops(cfg, batch: int, seq: int, mode: str) -> int:
     return cfg.num_layers * (3 * layer + recompute) + 3 * unembed
 
 
-def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
-                SyntheticLM, launches, energy, dev):
-    """(a) Qwen3-4B at full width and depth, fp32, trained for 4 steps by
-    ``train_loop.train`` (JAX's ``TrainConfig`` defaults: batch 8, 128
-    tokens) on ``SyntheticLM``: every loss and grad norm finite, the
-    step-0 loss below ln(padded vocab) + 2, every leaf moved; ms a step
-    over steps 1-3 (each step ends in the loop's read of its loss, which
-    waits for the step's last kernel), the optimizer's device time a step
-    (CUDA events) and the peak memory.  (b) one config of each block kind
-    at full width and a cut depth, 2 steps at batch 2 x 16 tokens on the
-    card and on the CPU from the same weights: losses and grad norms
-    within 1e-4 relative, step 0's grads within 1e-4 of each leaf's
-    largest |value|, and a second card run bitwise equal.  (c) on the
-    Qwen3-4B 2-layer run: a checkpoint after step 1, restored into fresh
-    tensors on the card, takes step 2 to the uninterrupted run's loss and
-    params, bitwise.  No kernel of the port launches on this path.
-    ``energy`` is phase 14's (meter, idle W) or, from
-    ``scripts/train_check.py``, the meter and an idle floor of its own:
-    (a) reports the joules a step of the meter's window around repeats of
-    one warm step (step 3's batch, going on from step 3's params and
-    optimizer state), as many as fill the meter's 2 s window."""
-    import dataclasses
+def train_full(torch, train_loop, opt, cfg, tcfg, dev) -> dict:
+    """``train_loop.train(cfg, tcfg)`` on the card with its steps and
+    AdamW recorded: each step's metrics (every loss and grad norm must be
+    finite, the step-0 loss below ln(padded vocab) + 2), a slice of every
+    leaf before step 0 (every leaf must move, or at bf16 lie where no
+    update of these steps can move it: ``stale_ok``), the host time of
+    each logged step (each ends in the loop's read of its loss, which
+    waits for the step's last kernel), the optimizer's CUDA events, the
+    peak memory and what earlier phases held, and the step function and
+    last batch for repeats."""
     import math
-    import tempfile
 
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.tree import leaves
 
-    launches.reset()
-    rows = {}
-    meter, idle_w = energy
-    # -- (a) --------------------------------------------------------------
-    cfg = configs.all_configs()["qwen3-4b"]
-    tcfg = train_loop.TrainConfig(steps=4, log_every=1)
     real_step, real_update = train_loop.make_train_step, opt.apply_updates
     metrics, marks, opt_events, before, warm = [], [], [], {}, {}
 
@@ -1944,26 +2181,168 @@ def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
         train_loop.make_train_step, opt.apply_updates = real_step, real_update
     peak = torch.cuda.max_memory_allocated(dev)
     params = out["params"]
-    n_params = tree_numel(params)
+    what = f"phase 11 {cfg.name} {tcfg.dtype}"
     vals = [{k: float(v) for k, v in m.items()} for m in metrics]
-    check(len(vals) == 4 and all(math.isfinite(v["loss"])
-                                 and math.isfinite(v["grad_norm"])
-                                 for v in vals),
-          f"phase 11 qwen3-4b: non-finite loss or grad norm {vals}")
+    check(len(vals) == tcfg.steps and all(
+        math.isfinite(v["loss"]) and math.isfinite(v["grad_norm"])
+        for v in vals), f"{what}: non-finite loss or grad norm {vals}")
     bound = math.log(cfg.padded_vocab) + 2
-    check(vals[0]["loss"] < bound, f"phase 11 qwen3-4b: step-0 loss "
-          f"{vals[0]['loss']} not below ln(padded vocab) + 2 = {bound}")
+    check(vals[0]["loss"] < bound, f"{what}: step-0 loss {vals[0]['loss']} "
+          f"not below ln(padded vocab) + 2 = {bound}")
+    lr = max(v["lr"] for v in vals)
+    mu = leaves(out["opt_state"].mu)
     stale = [i for i, t in enumerate(leaves(params))
              if torch.equal(t.reshape(-1)[:4096], before[i])]
-    check(not stale, f"phase 11 qwen3-4b: leaves {stale} did not move")
-    step_ms = 1e3 * (marks[3] - marks[0]) / 3
+    frozen = [i for i in stale if not stale_ok(
+        torch, before[i], mu[i].reshape(-1)[:4096], lr, tcfg.adamw)]
+    check(not frozen, f"{what}: leaves {frozen} did not move")
+    n = len(marks) - 1
+    return dict(params=params, opt_state=out["opt_state"], vals=vals,
+                peak=peak, held=held, opt_events=opt_events,
+                step_ms=1e3 * (marks[-1] - marks[0]) / n,
+                step_ms_each=[1e3 * (b - a) for a, b in zip(marks, marks[1:])],
+                step=warm["step"], batch=warm["batch"], stale=stale)
+
+
+def stale_ok(torch, values, mu, lr, adamw) -> bool:
+    """Whether a leaf stored in bf16 whose slice ``values`` did not move
+    could not have: at each element half a bf16 ulp (at least |x| 2^-9)
+    is at least the largest AdamW update a step of the run could make
+    (``lr``: the run's largest) -- its weight decay, lr wd |x|, where the
+    element never had a gradient (its first moment ``mu`` is 0: an
+    embedding row no token of the batches reached), and twice the lr
+    more where it had one (|m_hat| / sqrt(v_hat) of these first steps
+    stays below two).  RMSNorm scales at 1.0 lie there (2^-9 against lr
+    1.5e-4 at step 2 of the warm-up), as do unseen tokens' embedding rows
+    (wd lr = 1.5e-5 of |x|); an fp32 leaf never does."""
+    if values.dtype != torch.bfloat16:
+        return False
+    x = values.float().abs()
+    step = lr * adamw.weight_decay * x + torch.where(
+        mu != 0, 2 * lr, 0.0)
+    return bool((x * 2.0 ** -9 >= step).all())
+
+
+def train_bf16(torch, configs, T, train_loop, partition, opt, SyntheticLM,
+               dev) -> dict:
+    """Phase 11 under the bf16 policy: (a) Qwen3-4B at full width and
+    depth, ``TrainConfig(dtype="bfloat16")`` and the defaults otherwise
+    (batch 8 x 128), 3 steps: finite, the step-0 loss bound, every leaf
+    moved (or frozen by bf16's rounding: ``stale_ok``); ms a step over
+    steps 1-2, tokens/s and the peak against the 12 B a parameter the
+    port's AdamW keeps (bf16 params and grads, fp32 moments).  (b)
+    Qwen3-4B at 2 layers, bf16, 2 steps on the card and on the CPU from
+    the same weights: losses and grad norms within ``BF16_TOL`` relative
+    (``tests/test_torch_loss.py``'s bf16 bound against JAX)."""
+    import dataclasses
+    import math
+
+    from repro_torch.tree import tree_map
+
+    cfg = configs.all_configs()["qwen3-4b"]
+    tcfg = train_loop.TrainConfig(steps=3, log_every=1, dtype="bfloat16")
+    run = train_full(torch, train_loop, opt, cfg, tcfg, dev)
+    n_params = tree_numel(run["params"])
+    state_bytes = 12 * n_params
+    opt_ms = [a.elapsed_time(b) for a, b in run["opt_events"]]
+    row = dict(config="qwen3-4b", dtype="bf16", layers=cfg.num_layers,
+               params=n_params, batch=tcfg.batch, seq_len=tcfg.seq_len,
+               steps=tcfg.steps, losses=[v["loss"] for v in run["vals"]],
+               grad_norms=[v["grad_norm"] for v in run["vals"]],
+               step_ms=run["step_ms"], step_ms_each=run["step_ms_each"],
+               tokens_per_s=tcfg.batch * tcfg.seq_len / (run["step_ms"] / 1e3),
+               optimizer_ms=sum(opt_ms[1:]) / len(opt_ms[1:]),
+               optimizer_ms_each=opt_ms,
+               peak_bytes=run["peak"], held_bytes=run["held"],
+               state_bytes=state_bytes, stale_leaves=run["stale"])
+    print(f"phase 11: qwen3-4b full width and depth, bf16, batch "
+          f"{tcfg.batch} x {tcfg.seq_len} tokens: {row['step_ms']:.1f} ms a "
+          f"step over steps 1-2, {row['tokens_per_s']:.0f} tokens/s, "
+          f"optimizer {row['optimizer_ms']:.1f} ms a step; peak "
+          f"memory {run['peak'] / 2**30:.2f} GiB ({run['held'] / 2**30:.2f} "
+          f"GiB of it held by earlier phases) against "
+          f"{state_bytes / 2**30:.2f} GiB of bf16 params and grads and fp32 "
+          f"moments; {len(run['stale'])} leaves frozen by bf16's rounding "
+          f"({card_line()})")
+    del run
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    data = SyntheticLM(cfg2, 2, 16, seed=0)
+    batches = [data.batch_at(i) for i in range(2)]
+    card0 = T.init_params(cfg2, 0, torch.bfloat16, dev)
+    res = {}
+    cpu0 = tree_map(lambda t: t.to("cpu", copy=True), card0)
+    for where, p in (("card", card0), ("cpu", cpu0)):
+        d = p["embed"].device
+        step_fn = partition.make_train_step(cfg2, tcfg.adamw)
+        state = opt.init_state(p)
+        res[where] = []
+        for b in batches:
+            p, state, m = step_fn(p, state, {
+                k: torch.from_numpy(v).to(d) for k, v in b.items()})
+            res[where].append((float(m["loss"]), float(m["grad_norm"])))
+        del p, state
+    rel = max(abs(a - b) / abs(b) for x, y in zip(res["card"], res["cpu"])
+              for a, b in zip(x, y))
+    check(all(math.isfinite(v) for x in res["card"] for v in x),
+          f"phase 11 qwen3-4b bf16 2 layers: non-finite {res['card']}")
+    check(rel <= BF16_TOL, f"phase 11 qwen3-4b bf16 2 layers: the card's "
+          f"losses and grad norms differ from the CPU's by {rel} relative")
+    row.update(layers_2=res, layers_2_rel_err=rel)
+    del card0, cpu0
+    torch.cuda.empty_cache()
+    print(f"  qwen3-4b (2 layers, full width, bf16): card == CPU to "
+          f"{rel:.3g} (losses, grad norms over 2 steps)")
+    return row
+
+
+def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
+                SyntheticLM, launches, energy, dev):
+    """(a) Qwen3-4B at full width and depth, fp32, trained for 4 steps by
+    ``train_loop.train`` (JAX's ``TrainConfig`` defaults: batch 8, 128
+    tokens) on ``SyntheticLM``: every loss and grad norm finite, the
+    step-0 loss below ln(padded vocab) + 2, every leaf moved; ms a step
+    over steps 1-3 (each step ends in the loop's read of its loss, which
+    waits for the step's last kernel), the optimizer's device time a step
+    (CUDA events) and the peak memory.  (b) one config of each block kind
+    at full width and a cut depth, 2 steps at batch 2 x 16 tokens on the
+    card and on the CPU from the same weights: losses and grad norms
+    within 1e-4 relative, step 0's grads within 1e-4 of each leaf's
+    largest |value|, and a second card run bitwise equal.  (c) on the
+    Qwen3-4B 2-layer run: a checkpoint after step 1, restored into fresh
+    tensors on the card, takes step 2 to the uninterrupted run's loss and
+    params, bitwise.  No kernel of the port launches on this path.
+    ``energy`` is phase 14's (meter, idle W) or, from
+    ``scripts/train_check.py``, the meter and an idle floor of its own:
+    (a) reports the joules a step of the meter's window around repeats of
+    one warm step (step 3's batch, going on from step 3's params and
+    optimizer state), as many as fill the meter's 2 s window.  (a') the
+    same Qwen3-4B at bf16 (``train_bf16``)."""
+    import dataclasses
+    import math
+    import tempfile
+
+    from repro_torch.tree import leaves, tree_map
+
+    launches.reset()
+    rows = {}
+    meter, idle_w = energy
+    # -- (a) --------------------------------------------------------------
+    cfg = configs.all_configs()["qwen3-4b"]
+    tcfg = train_loop.TrainConfig(steps=4, log_every=1)
+    run = train_full(torch, train_loop, opt, cfg, tcfg, dev)
+    params, vals, peak, held = (run[k] for k in ("params", "vals", "peak",
+                                                 "held"))
+    n_params = tree_numel(params)
+    step_ms = run["step_ms"]
+    opt_events = run["opt_events"]
     opt_ms = sum(a.elapsed_time(b) for a, b in opt_events[1:]) / 3
     arith = train_arithmetic(cfg, n_params, tcfg.batch * tcfg.seq_len)
-    state = [params, out["opt_state"]]
+    state = [params, run["opt_state"]]
 
     def warm_step():
-        state[0], state[1], _ = warm["step"](state[0], state[1],
-                                             warm["batch"])
+        state[0], state[1], _ = run["step"](state[0], state[1], run["batch"])
 
     steps = meter.measure(warm_step)
     step_energy = energy_row(steps, idle_w, {
@@ -1977,7 +2356,7 @@ def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
         tokens_per_s=tcfg.batch * tcfg.seq_len / (step_ms / 1e3),
         optimizer_ms=opt_ms, optimizer_ms_each=[a.elapsed_time(b)
                                                 for a, b in opt_events],
-        step_ms_each=[1e3 * (b - a) for a, b in zip(marks, marks[1:])],
+        step_ms_each=run["step_ms_each"],
         peak_bytes=peak, held_bytes=held, energy=step_energy, **arith)
     print(f"phase 11: qwen3-4b full width and depth ({n_params / 1e9:.2f} B "
           f"parameters, fp32), batch {tcfg.batch} x {tcfg.seq_len} tokens: "
@@ -1994,8 +2373,10 @@ def phase_train(torch, configs, T, train_loop, partition, opt, ckpt,
           f"{idle_w:.1f} W): {steps.joules:.1f} J in {steps.seconds:.2f} s "
           f"at {steps.watts:.1f} W, {energy_text(step_energy, 'step')}, "
           f"{energy_text(step_energy, 'token')}")
-    del out, params, metrics, before, state, warm
+    del run, params, state
     torch.cuda.empty_cache()
+    rows["full_bf16"] = train_bf16(torch, configs, T, train_loop, partition,
+                                   opt, SyntheticLM, dev)
 
     # -- (b), (c) -----------------------------------------------------------
     adamw = train_loop.TrainConfig().adamw
@@ -2149,8 +2530,7 @@ def recording_geometries(torch, kconv, kquant, seen: dict):
             conv, plan_q, plan_d
 
 
-def phase_examples(torch, launches, kconv, kquant, conv_checked,
-                   codec_checked) -> dict:
+def phase_examples(torch, launches, kconv, kquant, checked) -> dict:
     """Phase 13a: the four examples on the card (each asserts what its
     JAX counterpart asserts), then the quickstart again under
     ``REPRO_WIRE_DTYPE=int8``; each run's launch counts set to 0 just
@@ -2160,12 +2540,10 @@ def phase_examples(torch, launches, kconv, kquant, conv_checked,
     examples must launch the conv kernels, the int8 run the codec's.
     Every conv and codec geometry the examples launched must be one that
     phases 3 and 4 held against the plain version (``conv_checked``,
-    ``codec_checked``)."""
+    ``checked``)."""
     runs = {}
-    kinds = ("conv", "quantize", "dequantize")
-    seen = {kind: set() for kind in kinds}
-    seen["calls"] = dict.fromkeys(kinds, 0)
-    launched = dict.fromkeys(kinds, 0)
+    seen = new_geometries()
+    launched = dict.fromkeys(CNN_KERNELS, 0)
     for name, wire in [(n, None) for n in EXAMPLES] \
             + [("torch_quickstart", "int8")]:
         label = name if wire is None else f"{name} {wire}"
@@ -2183,9 +2561,8 @@ def phase_examples(torch, launches, kconv, kquant, conv_checked,
                 os.environ["REPRO_WIRE_DTYPE"] = old
         torch.cuda.synchronize()
         counts = launches.snapshot()
-        launched["conv"] += counts["conv2d_dense"] + counts["conv2d_depthwise"]
-        launched["quantize"] += counts["quantize"]
-        launched["dequantize"] += counts["dequantize"]
+        for k in launched:
+            launched[k] += counts[k]
         row = dict(seconds=time.perf_counter() - t0, launches=counts)
         if name == "torch_quickstart":
             split, full = out["split_logits"], out["full_logits"]
@@ -2204,17 +2581,10 @@ def phase_examples(torch, launches, kconv, kquant, conv_checked,
             check(counts["conv2d_dense"] > 0,
                   f"phase 13a {label}: no conv launch ({counts})")
         runs[label] = row
-    check(seen["calls"] == launched, f"phase 13a: {seen['calls']} launches "
-          f"recorded with their geometry, {launched} counted")
-    unchecked = {kind: sorted(seen[kind] - (conv_checked if kind == "conv"
-                                            else codec_checked), key=str)
-                 for kind in kinds}
-    check(not any(unchecked.values()), f"phase 13a: geometries launched "
-          f"that phases 3-4 did not hold against the plain version: "
-          f"{unchecked}")
-    check(seen["conv"] and seen["quantize"] and seen["dequantize"],
+    runs["geometries"] = check_geometries("phase 13a", seen, launched,
+                                          *checked)
+    check(all(runs["geometries"].values()),
           f"phase 13a: no geometry recorded ({seen})")
-    runs["geometries"] = {kind: len(seen[kind]) for kind in kinds}
     print("phase 13a: examples on the card (launches): " + "; ".join(
         f"{k} {v['seconds']:.1f} s " + json.dumps(
             {n: c for n, c in v["launches"].items() if c})
@@ -2293,13 +2663,14 @@ def phase_dryrun(torch, configs, dryrun, mesh_lib, roofline, train_row,
 
 
 def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, optimizer,
-                 train_row, dev) -> dict:
-    """Phase 13c: the dry-run's memory sizes (one-device mesh, fp32)
-    against the card's allocator, each within ``MEMORY_BAND``: (i) phase
-    11's Qwen3-4B train cell, the whole step (arguments + output + temp -
-    alias) against phase 11's peak less what earlier phases held; (ii)
-    one ``make_decode_step`` of Qwen3-4B at full size, batch 4, a
-    128-slot cache, the step's own bytes (output + temp - alias) against
+                 train_rows, dev) -> dict:
+    """Phase 13c: the dry-run's memory sizes (one-device mesh) against the
+    card's allocator, each within ``MEMORY_BAND``: (i) phase 11's
+    Qwen3-4B train cells, fp32 and bf16, the whole step (arguments +
+    output + temp - alias) against each run's peak less what earlier
+    phases held; (ii) one ``make_decode_step`` of Qwen3-4B at full size,
+    batch 4, a 128-slot cache, fp32 and bf16, the step's own bytes
+    (output + temp - alias) against
     ``max_memory_allocated`` less ``memory_allocated`` before it, after
     one untimed step on the same arguments; (iii) for each of
     ``MEMORY_KINDS`` (full width, phase 11's cut depth), one
@@ -2328,37 +2699,41 @@ def phase_memory(torch, configs, T, partition, dryrun, mesh_lib, optimizer,
               f"card allocated {measured} B where the dry-run's counter "
               f"predicts {predicted} B (band {band:.0f} B)")
 
-    shape = InputShape("phase11_train", train_row["seq_len"],
-                       train_row["batch"], "train")
-    rec = dryrun.lower_cell(cfg, shape, mesh, "one-card",
-                            dtype=torch.float32)
-    held_to("train", rec["memory"],
-            train_row["peak_bytes"] - train_row["held_bytes"], True)
+    for suffix, dtype, row in (("", torch.float32, train_rows["full"]),
+                               ("_bf16", torch.bfloat16,
+                                train_rows["full_bf16"])):
+        shape = InputShape("phase11_train", row["seq_len"], row["batch"],
+                           "train")
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(cfg, shape, mesh, "one-card", dtype=dtype)
+        held_to("train" + suffix, rec["memory"],
+                row["peak_bytes"] - row["held_bytes"], True)
+        rows["train" + suffix]["counted_s"] = time.perf_counter() - t0
 
-    shape = InputShape("phase10_decode", 128, 4, "decode")
-    rec = dryrun.lower_cell(cfg, shape, mesh, "one-card",
-                            dtype=torch.float32)
-    params = T.init_params(cfg, 0, torch.float32, dev)
-    cache = T.init_cache(cfg, shape.global_batch, shape.seq_len,
-                         torch.float32, dev)
-    tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
-                           generator=torch.Generator().manual_seed(13))
-    tokens = tokens.to(device=dev, dtype=torch.int32)
-    step = partition.make_decode_step(cfg)
-    out = step(params, tokens, cache)           # untimed: the same shapes
-    del out
-    torch.cuda.synchronize(dev)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    before = torch.cuda.memory_allocated(dev)
-    out = step(params, tokens, cache)
-    torch.cuda.synchronize(dev)
-    peak = torch.cuda.max_memory_allocated(dev)
-    check(bool(torch.isfinite(out[0]).all()), "phase 13c decode: "
-          "non-finite logits")
-    held_to("decode", rec["memory"], peak - before, False)
-    del out, params, cache
-    torch.cuda.empty_cache()
+    for suffix, dtype in (("", torch.float32), ("_bf16", torch.bfloat16)):
+        shape = InputShape("phase10_decode", 128, 4, "decode")
+        rec = dryrun.lower_cell(cfg, shape, mesh, "one-card", dtype=dtype)
+        params = T.init_params(cfg, 0, dtype, dev)
+        cache = T.init_cache(cfg, shape.global_batch, shape.seq_len, dtype,
+                             dev)
+        tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1),
+                               generator=torch.Generator().manual_seed(13))
+        tokens = tokens.to(device=dev, dtype=torch.int32)
+        step = partition.make_decode_step(cfg)
+        out = step(params, tokens, cache)       # untimed: the same shapes
+        del out
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        out = step(params, tokens, cache)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(bool(torch.isfinite(out[0].float()).all()),
+              f"phase 13c decode{suffix}: non-finite logits")
+        held_to("decode" + suffix, rec["memory"], peak - before, False)
+        del out, params, cache
+        torch.cuda.empty_cache()
 
     for name, arch, n_layers, seq in MEMORY_KINDS:
         kcfg = dataclasses.replace(configs.all_configs()[arch],
@@ -2506,15 +2881,15 @@ def main() -> int:
 
     worst, conv_rows, conv_checked = phase_conv(torch, F, cnn, kconv, ref,
                                                 dev)
-    micro, batch4, extra = codec_shapes(cnn, core, profiles)
-    shapes = micro + batch4 + extra + SPLIT_CODEC_SHAPES
+    micro, batch4, extra, every = codec_shapes(cnn, core, profiles)
+    shapes = micro + batch4 + extra + SPLIT_CODEC_SHAPES + every
     quickstart = quickstart_boundary(cnn, core, profiles)
     codec_worst, codec_plans, codec_checked = phase_codec(
-        torch, kquant, ref, shapes + [quickstart] * (quickstart not in shapes),
-        dev)
+        torch, kquant, ref, shapes + [quickstart], dev)
     worst.update(codec_worst)
-    counts, runs = phase_main(torch, cnn, serve, launches, kquant, runtime,
-                              dev)
+    checked = (conv_checked, codec_checked)
+    counts, runs, main_geometries = phase_main(
+        torch, cnn, serve, launches, kquant, runtime, kconv, checked, dev)
     cases = mixer_cases(configs, RWKV_HD)
     t0 = time.perf_counter()
     inputs, outs, mixer_counts = phase_mixers(torch, kops, launches, cases,
@@ -2525,10 +2900,8 @@ def main() -> int:
                                                  inputs, outs, small, dev)
     worst.update(mixer_worst)
     print(f"phases 7-8: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    stream_counts, stream_runs = phase_stream(torch, cnn, serve, launches,
-                                              kquant, dev)
-    print(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    stream_counts, stream_runs, stream_geometries = phase_stream(
+        torch, cnn, serve, launches, kquant, kconv, checked, dev)
     meter, idle_w, energy_runs = phase_energy(energy, hardware, dev)
     t0 = time.perf_counter()
     decode_runs = phase_decode(torch, configs, transformer, Engine, launches,
@@ -2541,6 +2914,7 @@ def main() -> int:
     print(f"phase 12: {time.perf_counter() - t0:.1f} s")
     agg, time_rows = phase_time(torch, F, cnn, kconv, kquant, ref,
                                 micro + batch4, dev)
+    vgg16_time = phase_time_vgg16(torch, F, cnn, kconv, runs, dev)
     split_agg = {}
     for shape in SPLIT_CODEC_SHAPES:
         for dname, dtype in (("fp32", torch.float32),
@@ -2561,13 +2935,11 @@ def main() -> int:
                              launches, (meter, idle_w), dev)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    example_runs = phase_examples(torch, launches, kconv, kquant,
-                                  conv_checked, codec_checked)
+    example_runs = phase_examples(torch, launches, kconv, kquant, checked)
     dryrun_runs = phase_dryrun(torch, configs, dryrun, mesh_lib, roofline,
                                train_runs["full"], decode_runs[0])
     memory_runs = phase_memory(torch, configs, transformer, partition,
-                               dryrun, mesh_lib, optimizer,
-                               train_runs["full"], dev)
+                               dryrun, mesh_lib, optimizer, train_runs, dev)
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -2601,6 +2973,9 @@ def main() -> int:
                                for k, v in codec_plans.items()],
                   kernel_report=kernel_report,
                   mixer_checks=mixer_rows, runs=runs, timings=time_rows,
+                  vgg16_forward=vgg16_time,
+                  geometries=dict(main=main_geometries,
+                                  stream=stream_geometries),
                   stream_runs=stream_runs, energy_runs=energy_runs,
                   decode_runs=decode_runs,
                   split_runs=split_runs,

@@ -76,7 +76,7 @@ def main() -> int:
     card = cs.card_line()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(6)
-    micro, batch4, _ = cs.codec_shapes(cnn, core, profiles)
+    micro, batch4, *_ = cs.codec_shapes(cnn, core, profiles)
     rows = {}
     for shape in micro + batch4:
         for dname, dtype in (("fp32", torch.float32),

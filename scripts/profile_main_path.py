@@ -3,21 +3,25 @@
 
     python3 scripts/profile_main_path.py [--src DIR] [--label NAME]
                                          [--paths request,stream,decode,train]
+                                         [--dtype fp32|bf16]
 
 Each path is traced with ``torch.profiler`` (CPU and CUDA) after an
-untraced warm-up on the same shapes:
+untraced warm-up on the same shapes, under the storage policy ``--dtype``
+(default fp32: CNN ``--dtype``, transformer params, cache and
+``TrainConfig.dtype``):
 
 - ``request`` (default): ``repro_torch.launch.serve.serve_cnn`` for AlexNet
-  (K=2, follow wire) and MobileNetV2 (K=3, M=4, int8 wire) at 224 px,
-  batch 4; three more requests of each are traced.
-- ``stream``: ``serve_cnn_stream`` for the same two models, K=3 with the
-  int8 wire, 16 single-sample requests in batch buckets of 4, pipelined;
-  a second stream is traced around ``run_until_idle``.
-- ``decode``: Qwen3-4B at full width and depth (fp32, seeded weights on
-  the card) in ``repro_torch.serving.engine.Engine``; one batch of 4
+  (K=2, follow wire), MobileNetV2 (K=3, M=4, int8 wire) and VGG16 (K=2,
+  follow wire) at 224 px, batch 4; three more requests of each are
+  traced.
+- ``stream``: ``serve_cnn_stream`` for AlexNet and MobileNetV2, K=3 with
+  the int8 wire, 16 single-sample requests in batch buckets of 4,
+  pipelined; a second stream is traced around ``run_until_idle``.
+- ``decode``: Qwen3-4B at full width and depth (seeded weights on the
+  card) in ``repro_torch.serving.engine.Engine``; one batch of 4
   requests of 16 prompt tokens and 8 new tokens is traced after a warm-up
   batch of the same shapes, with ``prefill`` and ``decode_step`` spans.
-- ``train``: Qwen3-4B at full width and depth (fp32) in
+- ``train``: Qwen3-4B at full width and depth in
   ``repro_torch.training.train_loop.train`` at the JAX package's
   ``TrainConfig`` defaults (batch 8 x 128 tokens); step 2 is traced, from
   the end of step 1 (synchronized) to the end of step 2 (synchronized),
@@ -40,6 +44,7 @@ card."""
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -52,6 +57,8 @@ CONFIGS = [
                  "follow"]),
     ("mobilenetv2", ["--tiers", "3", "--microbatch", "4", "--wire-dtype",
                      "int8"]),
+    ("vgg16", ["--tiers", "2", "--microbatch", "1", "--wire-dtype",
+               "follow"]),
 ]
 STREAM = ["--tiers", "3", "--wire-dtype", "int8", "--concurrency", "16",
           "--max-batch", "4"]
@@ -114,9 +121,10 @@ def _print(what, row, top=8):
               f"{d['name'][:80]}")
 
 
-def profile_request(torch, profile, acts, serve, out_dir, label):
+def profile_request(torch, profile, acts, serve, out_dir, label, dtype):
     rows, n_req = [], 3
     for model, argv in CONFIGS:
+        argv = [*argv, "--dtype", dtype]
         sargs = serve.parse_args(["--cnn", model, "--batch", "4",
                                   "--requests", "2", *argv])
         warm = serve.serve_cnn(sargs, quiet=True)     # builds, warms up
@@ -137,7 +145,8 @@ def profile_request(torch, profile, acts, serve, out_dir, label):
     return rows
 
 
-def profile_stream(torch, profile, acts, serve, cnn_engine, out_dir, label):
+def profile_stream(torch, profile, acts, serve, cnn_engine, out_dir, label,
+                   dtype):
     run = cnn_engine.CnnServingEngine.run_until_idle
     traced = []
 
@@ -150,9 +159,9 @@ def profile_stream(torch, profile, acts, serve, cnn_engine, out_dir, label):
             wall = time.perf_counter() - t0
         traced.append((prof, wall))
 
-    rows = []
+    rows, argv = [], [*STREAM, "--dtype", dtype]
     for model in ("alexnet", "mobilenetv2"):
-        args = serve.parse_args(["--cnn", model, *STREAM])
+        args = serve.parse_args(["--cnn", model, *argv])
         serve.serve_cnn_stream(args, quiet=True)           # warm-up
         cnn_engine.CnnServingEngine.run_until_idle = run_traced
         try:
@@ -161,20 +170,22 @@ def profile_stream(torch, profile, acts, serve, cnn_engine, out_dir, label):
             cnn_engine.CnnServingEngine.run_until_idle = run
         prof, wall = traced.pop()
         n = out["engine"].stats()["served"]
-        row = dict(model=model, argv=STREAM, requests=n,
+        row = dict(model=model, argv=argv, requests=n,
                    **_summary(prof, SPANS, n, wall))
         rows.append(row)
         prof.export_chrome_trace(os.path.join(
             out_dir, f"trace_{label}_stream_{model}.json"))
-        _print(f"stream {model} K3 int8, per request", row)
+        _print(f"stream {model} K3 int8 {dtype}, per request", row)
     return rows
 
 
-def profile_decode(torch, profile, acts, all_configs, T, Engine):
+def profile_decode(torch, profile, acts, all_configs, T, Engine, dtype):
     cfg = all_configs()["qwen3-4b"]
     dev = torch.device("cuda")
-    params = T.init_params(cfg, 0, torch.float32, dev)
-    eng = Engine(cfg, params, max_len=128, max_batch=4, device=dev)
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    params = T.init_params(cfg, 0, tdt, dev)
+    eng = Engine(cfg, params, max_len=128, max_batch=4, dtype=tdt,
+                 device=dev)
     _wrap(torch, eng, "_prefill", "prefill")
     _wrap(torch, eng, "_decode", "decode_step")
     gen = torch.Generator().manual_seed(0)
@@ -195,21 +206,23 @@ def profile_decode(torch, profile, acts, all_configs, T, Engine):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     passes = 8                          # one prefill + 7 decode steps
-    row = dict(config="qwen3-4b", batch=4, prompt=16, new_tokens=8,
-               tokens_per_s=4 * 8 / wall, passes=passes,
+    row = dict(config="qwen3-4b", dtype=dtype, batch=4, prompt=16,
+               new_tokens=8, tokens_per_s=4 * 8 / wall, passes=passes,
                **_summary(prof, DECODE_SPANS, passes, wall))
-    _print("decode qwen3-4b batch 4, per pass (prefill or decode step)", row,
-           top=6)
+    _print(f"decode qwen3-4b {dtype} batch 4, per pass (prefill or decode "
+           f"step)", row, top=6)
     print(f"  {row['tokens_per_s']:.1f} tokens/s over the traced batch")
     return row
 
 
 def profile_train(torch, profile, acts, all_configs, train_loop, T, opt,
-                  pipeline):
+                  pipeline, dtype):
     """One warm Qwen3-4B train step traced inside ``train()``."""
     cfg = all_configs()["qwen3-4b"]
     dev = torch.device("cuda")
-    tcfg = train_loop.TrainConfig(steps=4, log_every=10)
+    tcfg = train_loop.TrainConfig(
+        steps=4, log_every=10,
+        dtype="bfloat16" if dtype == "bf16" else "float32")
     _wrap(torch, T, "loss_fn", "forward")
     _wrap(torch, opt, "apply_updates", "optimizer")
     _wrap(torch, torch.autograd, "backward", "backward")
@@ -242,10 +255,11 @@ def profile_train(torch, profile, acts, all_configs, train_loop, T, opt,
         train_loop.train(cfg, tcfg, log=lambda line: None, device=dev)
     finally:
         train_loop.make_train_step = real_step
-    row = dict(config="qwen3-4b", batch=tcfg.batch, seq_len=tcfg.seq_len,
+    row = dict(config="qwen3-4b", dtype=dtype, batch=tcfg.batch,
+               seq_len=tcfg.seq_len,
                tokens_per_s=tcfg.batch * tcfg.seq_len / state["wall"],
                **_summary(state["prof"], TRAIN_SPANS, 1, state["wall"]))
-    _print("train qwen3-4b batch 8 x 128, per step", row, top=10)
+    _print(f"train qwen3-4b {dtype} batch 8 x 128, per step", row, top=10)
     print(f"  {row['tokens_per_s']:.0f} tokens/s over the traced step")
     return row
 
@@ -257,6 +271,8 @@ def main() -> int:
     ap.add_argument("--paths", default="request",
                     help="comma-separated: request, stream, decode, "
                          "train")
+    ap.add_argument("--dtype", default="fp32", choices=("fp32", "bf16"),
+                    help="storage policy of every path")
     args = ap.parse_args()
     paths = args.paths.split(",")
     bad = set(paths) - {"request", "stream", "decode", "train"}
@@ -288,29 +304,35 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    report = {"card": card, "label": args.label,
+    report = {"card": card, "label": args.label, "dtype": args.dtype,
               "src": os.path.abspath(args.src)}
     if "request" in paths:
         report["request"] = profile_request(torch, profile, acts, serve,
-                                            out_dir, args.label)
+                                            out_dir, args.label, args.dtype)
     if "stream" in paths:
         from repro_torch.serving import cnn_engine
         report["stream"] = profile_stream(torch, profile, acts, serve,
-                                          cnn_engine, out_dir, args.label)
+                                          cnn_engine, out_dir, args.label,
+                                          args.dtype)
     if "decode" in paths:
         from repro_torch.configs import all_configs
         from repro_torch.models import transformer as T
         from repro_torch.serving.engine import Engine
         report["decode"] = profile_decode(torch, profile, acts, all_configs,
-                                          T, Engine)
+                                          T, Engine, args.dtype)
     if "train" in paths:
+        # the decode engine's wrapped methods hold it (and its weights) in
+        # a reference cycle: free them before the step needs the card
+        gc.collect()
+        torch.cuda.empty_cache()
         from repro_torch.configs import all_configs
         from repro_torch.data import pipeline
         from repro_torch.models import transformer as T
         from repro_torch.training import optimizer as opt
         from repro_torch.training import train_loop
         report["train"] = profile_train(torch, profile, acts, all_configs,
-                                        train_loop, T, opt, pipeline)
+                                        train_loop, T, opt, pipeline,
+                                        args.dtype)
     with open(os.path.join(out_dir, f"profile_main_path_{args.label}.json"),
               "w") as f:
         json.dump(report, f, indent=1)

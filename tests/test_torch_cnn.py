@@ -29,6 +29,11 @@ MODELS = {
     "synthetic": (SYNTH, SYNTH_SHAPE, 2),
     "mobilenetv2": (jcnn.CNN_MODELS["mobilenetv2"], (3, 32, 32), 2),
     "alexnet": (jcnn.CNN_MODELS["alexnet"], (3, 64, 64), 2),
+    # VGG's classifier is full width at any resolution (the adaptive
+    # avgpool to 7x7 feeds a (25088, 4096) linear); its features at the
+    # smallest sizes its five pools take
+    "vgg11": (jcnn.CNN_MODELS["vgg11"], (3, 32, 32), 2),
+    "vgg16": (jcnn.CNN_MODELS["vgg16"], (3, 48, 48), 2),
 }
 FP32_TOL = 1e-3
 BF16_TOL = 2e-2
@@ -143,6 +148,22 @@ def test_split_sweep_synthetic(nets, dtype):
                                    dtype=dtype, wire="int8")
         _assert_close(got.float().numpy(),
                       np.asarray(want.astype(np.float32)), tol)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_vgg11_split_sweep_equals_monolithic(nets, dtype):
+    """Every split of VGG11, a cut between each conv and its relu and
+    between each relu and its pool among them: the follow-wire split
+    equals the monolithic forward bitwise in the port (under bf16 the
+    boundary is stored in bf16 either way, and rounding commutes with
+    relu and max-pool)."""
+    layers, _, _, _, tp, x = nets["vgg11"]
+    xt = torch.from_numpy(x)
+    mono = tcnn.apply_cnn(layers, tp, xt, dtype=dtype)
+    for l1 in range(len(layers) + 1):
+        logits, _ = tcnn.apply_split(layers, tp, xt, l1, dtype=dtype,
+                                     wire="follow")
+        assert torch.equal(logits, mono), f"split {l1} != monolithic"
 
 
 def test_alexnet_split_one_boundary_is_pre_activation(nets):

@@ -45,16 +45,16 @@ def _mesh(name):
     return M.make_debug_mesh(*MESHES[name], device="meta")
 
 
-def direct(cfg, shape, mesh):
+def direct(cfg, shape, mesh, dtype=torch.float32):
     """One device's memory counted at ``shape``'s own length and the real
     depth, and its temp by stage: the plain pass on one device, else the
     DTensor pass (its op budget does not apply here)."""
     if mesh.devices.size == 1:
-        res = DR._measure(cfg, shape, mesh, torch.float32, memory=True)
+        res = DR._measure(cfg, shape, mesh, dtype, memory=True)
         return res["memory"], res["stage_temps"]
     with DR._fake_group(int(mesh.devices.size)):
         device_mesh, joins = DR._device_mesh(mesh)
-        res = DR._measure_collectives(cfg, shape, mesh, torch.float32,
+        res = DR._measure_collectives(cfg, shape, mesh, dtype,
                                       device_mesh, joins, ep=True)
     return res["memory"], res["stage_temps"]
 
@@ -63,22 +63,25 @@ def _peak_stage(stages):
     return max(stages, key=stages.get)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("mesh,mode,S,B", CASES,
                          ids=[f"{m}-{mode}" for m, mode, _, _ in CASES])
 def test_rwkv_memory_fit_equals_the_direct_count(monkeypatch, mesh, mode,
-                                                  S, B):
+                                                  S, B, dtype):
     """The record's output, temp and alias at S (64 or 128), fit from S 8
     and 16 -- on one device at the real depth, on the (2, 2, 2) mesh over
     the depth variants B2 and B4 as well -- equal the direct count at
     that length and the real depth (4 layers on the mesh), byte for
-    byte, and so does each stage's temp.  In train the peak moves from
-    AdamW at the fit points to a block's backward at S."""
+    byte, and so does each stage's temp, in fp32 and in the dry-run's
+    default bf16.  In train the peak moves from AdamW at the fit points
+    to a block's backward at S."""
     monkeypatch.setattr(DR, "SEQ_POINTS", POINTS)
     cfg = reduced(2 if mesh == "one" else 4)
     shape = InputShape("t", S, B, mode)
-    rec = DR.lower_cell(cfg, shape, _mesh(mesh), "m", dtype=torch.float32)
+    rec = DR.lower_cell(cfg, shape, _mesh(mesh), "m", dtype=dtype)
     assert rec["extrapolation"]["seq_len"] == list(POINTS)
-    want, stages = direct(cfg, shape, _mesh(mesh))
+    want, stages = direct(cfg, shape, _mesh(mesh), dtype)
     for key in DR.MEMORY_KEYS:
         assert rec["memory"][key] == want[key], (key, rec["memory"], want)
     assert "each fit in S from [8, 16] moment by moment" \
@@ -94,7 +97,7 @@ def test_rwkv_memory_fit_equals_the_direct_count(monkeypatch, mesh, mode,
         assert max(got.values()) == max(stages.values())
     if mode == "train":
         _, short = direct(cfg, dataclasses.replace(shape, seq_len=POINTS[1]),
-                          _mesh(mesh))
+                          _mesh(mesh), dtype)
         assert _peak_stage(short) == "optimizer"
         assert _peak_stage(stages).startswith("backward: unit")
 

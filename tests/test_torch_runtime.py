@@ -6,8 +6,11 @@ JAX package's, on the CPU.
 * ``ChainRuntime`` on the tiny CNN of ``tests/test_chain_runtime.py``:
   the event log, the virtual-clock times and ``stats()["hops"]`` equal
   the JAX runtime's exactly (the clock prices the profile, not the
-  tensors), and the logits agree to 1e-3 -- over K, M, wire formats,
+  tensors), and the logits agree to 1e-3 (2e-2 of scale under the bf16
+  storage policy) -- over K, M, wire formats, both storage policies,
   30% drops on three seeds, and the tier-fault crash-window ladder.
+* VGG16 at 224 px on the paper's two-tier chain with the int8 wire: the
+  same cut and the same hop bytes as the JAX package's run.
 * ``serve.main`` runs the synchronous ``--cnn`` path on the CPU."""
 import jax
 import numpy as np
@@ -32,7 +35,7 @@ JTINY = [jcnn.conv(8, 3, 1, 1), jcnn.relu(), jcnn.maxpool(2, 2),
          jcnn.conv(16, 3, 1, 1), jcnn.relu(), jcnn.avgpool(2),
          jcnn.linear(10)]
 TINY_SHAPE = (3, 16, 16)
-LOGIT_TOL = 1e-3
+LOGIT_TOL = {"fp32": 1e-3, "bf16": 2e-2}
 
 
 @pytest.fixture(scope="module")
@@ -64,15 +67,25 @@ def _events(log):
 
 
 def _run_pair(tiny, K, M=1, wire=None, drop=0.0, seed=0, requests=1,
-              tier_spec=None, merge_fallback=None):
+              tier_spec=None, merge_fallback=None, dtype="fp32",
+              model="tiny", in_shape=TINY_SHAPE):
     """The same request stream through the JAX and the port runtime,
-    built from each package's own planner, links and tier models."""
+    built from each package's own planner (on the profile of the
+    storage policy ``dtype``), links and tier models.  ``tiny`` is
+    (JAX params, port params, input batch) of ``model`` (its layers: the
+    tiny net's, or a paper model's by name)."""
     jp, tp, x = tiny
     out = []
+    paper = model in jcnn.CNN_MODELS
     for pkg, rt_mod, core, prof, layers, params, xin in (
             ("jax", jrt, jcore, jprofile, JTINY, jp, x),
             ("torch", trt, tcore, tprofile, TINY, tp, torch.from_numpy(x))):
-        profile = prof("tiny", in_shape=TINY_SHAPE, layers=layers)
+        if paper:
+            layers = model
+            profile = prof(model, batch=x.shape[0], dtype=dtype)
+        else:
+            profile = prof("tiny", in_shape=in_shape, layers=layers,
+                           dtype=dtype)
         hw = core.paper_chain(K)
         plan = core.smartsplit_chain(profile, hw, microbatches=M, wire=wire)
         clock = rt_mod.VirtualClock()
@@ -88,14 +101,14 @@ def _run_pair(tiny, K, M=1, wire=None, drop=0.0, seed=0, requests=1,
                 seed=seed + k, clock=clock) for k, t in enumerate(hw.tiers)]
         rt = rt_mod.ChainRuntime(layers, params, plan, profile, hw,
                                  links=links, wire=wire, microbatches=M,
-                                 tier_faults=tiers,
+                                 tier_faults=tiers, dtype=dtype,
                                  merge_fallback=merge_fallback)
         results = [rt.infer(xin) for _ in range(requests)]
         out.append((plan, rt, results))
     return out
 
 
-def _assert_same_run(pair):
+def _assert_same_run(pair, dtype="fp32"):
     (jplan, jrt_, jres), (tplan, trt_, tres) = pair
     assert tplan.cuts == jplan.cuts
     assert _events(trt_.log) == _events(jrt_.log)
@@ -112,25 +125,29 @@ def _assert_same_run(pair):
                 tr.merged_hops, tr.degraded) == \
             (jr.cuts, jr.attempts, jr.wire_bytes, jr.goodput_bytes,
              jr.merged_hops, jr.degraded)
-        want = np.asarray(jr.logits)
-        err = float(np.max(np.abs(tr.logits.numpy() - want)))
-        assert err <= LOGIT_TOL * max(1.0, float(np.max(np.abs(want))))
+        want = np.asarray(jr.logits.astype(np.float32))
+        assert tr.logits.dtype == (torch.bfloat16 if dtype == "bf16"
+                                   else torch.float32)
+        err = float(np.max(np.abs(tr.logits.float().numpy() - want)))
+        assert err <= LOGIT_TOL[dtype] * max(1.0, float(np.max(np.abs(want))))
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("wire", ["follow", "int8"])
 @pytest.mark.parametrize("M", [1, 4])
 @pytest.mark.parametrize("K", [2, 3])
-def test_chain_runtime_matches_jax(tiny, K, M, wire):
-    pair = _run_pair(tiny, K, M, wire=wire, requests=2)
-    _assert_same_run(pair)
+def test_chain_runtime_matches_jax(tiny, K, M, wire, dtype):
+    pair = _run_pair(tiny, K, M, wire=wire, requests=2, dtype=dtype)
+    _assert_same_run(pair, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_chain_runtime_drops_match_jax(tiny, seed):
+def test_chain_runtime_drops_match_jax(tiny, seed, dtype):
     pair = _run_pair(tiny, 3, 4, wire="int8", drop=0.3, seed=seed,
-                     requests=3)
+                     requests=3, dtype=dtype)
     assert pair[1][1].stats()["hops"][0]["link"]["dropped"] > 0
-    _assert_same_run(pair)
+    _assert_same_run(pair, dtype)
 
 
 def test_tier_fault_crash_window_ladder_matches_jax(tiny):
@@ -168,7 +185,48 @@ def test_split_runtime_matches_jax(tiny):
             (a.split_index, a.attempts, a.wire_bytes)
         want = np.asarray(a.logits)
         assert np.max(np.abs(b.logits.numpy() - want)) <= \
-            LOGIT_TOL * max(1.0, float(np.max(np.abs(want))))
+            LOGIT_TOL["fp32"] * max(1.0, float(np.max(np.abs(want))))
+
+
+def _numpy_init(layers, shape, seed=0):
+    """JAX ``init_cnn``'s tree (structure, shapes, dtypes from
+    ``jax.eval_shape``) filled He-normal from numpy: a paper model's
+    weights without JAX's draw and its compiles."""
+    rng = np.random.default_rng(seed)
+    spec = jax.eval_shape(lambda k: jcnn.init_cnn(k, layers, shape),
+                          jax.random.PRNGKey(0))
+
+    def fill(leaf):
+        if len(leaf.shape) == 1:
+            return np.zeros(leaf.shape, leaf.dtype)
+        fan_in = leaf.shape[0] if len(leaf.shape) == 2 \
+            else int(np.prod(leaf.shape[1:]))
+        return (rng.standard_normal(leaf.shape, np.float32)
+                * np.float32(np.sqrt(2.0 / fan_in))).astype(leaf.dtype)
+
+    return jax.tree_util.tree_map(fill, spec)
+
+
+def test_vgg16_int8_two_tier_cut_and_bytes_match_jax():
+    """VGG16 at 224 px, batch 1, on the paper's two-tier chain with the
+    int8 wire: both packages plan the cut after pool3 and ship the
+    (256, 28, 28) boundary as the same int8 payload of 201,748 bytes
+    (802,816 in fp32), in one frame of the transfer layer, event for
+    event."""
+    layers = jcnn.CNN_MODELS["vgg16"]
+    tree = _numpy_init(layers, jcnn.INPUT_SHAPE)
+    x = np.asarray(np.random.default_rng(0).normal(
+        size=(1,) + jcnn.INPUT_SHAPE), np.float32)
+    pair = _run_pair((tree, tcnn.params_from_numpy(tree, device="cpu"), x),
+                     2, wire="int8", model="vgg16")
+    _assert_same_run(pair)
+    (jplan, _, _), (tplan, trt_, tres) = pair
+    assert tplan.cuts == jplan.cuts == (17,)
+    hop = trt_.stats()["hops"][0]
+    sent = 201_748 + trt.transfer.HEADER_BYTES
+    assert (hop["wire_dtype"], hop["raw_bytes"], hop["wire_bytes"]) == \
+        ("int8", 802_816, sent)
+    assert tres[0].wire_bytes == sent
 
 
 def test_chain_split_equals_monolithic_bitwise(tiny):

@@ -10,7 +10,7 @@ through the JAX package's engine and the port's.
   tensors, so the schedules are exact).
 * In pipelined mode every request's logits equal the port's own
   single-sample ``apply_cnn`` bitwise, and JAX's engine's logits to 1e-4
-  of their scale.
+  of their scale (2e-2 under the bf16 storage policy).
 * The serving bench's clean cell (alexnet 64x64, 3 tiers, 16 requests)
   comes out of the port as the JSON the JAX engine wrote."""
 import json
@@ -47,7 +47,7 @@ JTINY = [jcnn.conv(8, 3, 1, 1), jcnn.relu(), jcnn.maxpool(2, 2),
          jcnn.linear(10)]
 TINY_SHAPE = (3, 16, 16)
 TINY_SHAPE_B = (3, 24, 24)
-JAX_TOL = 1e-4
+JAX_TOL = {"fp32": 1e-4, "bf16": 2e-2}
 TEST_POLICY = dict(max_attempts=2, timeout_s=0.05, backoff_base_s=0.005)
 
 
@@ -80,10 +80,11 @@ def _links(rt_mod, hw, seed=0, fault_hop=None, spec=None, every=None):
         for k, link in enumerate(hw.links)]
 
 
-def _ref(params, x1):
+def _ref(params, x1, dtype=None):
     """Single-sample single-device reference (split placement cannot
     change numerics, so this is the apply_split reference too)."""
-    return tcnn.apply_cnn(TINY_LAYERS, params, torch.as_tensor(x1)[None])[0]
+    return tcnn.apply_cnn(TINY_LAYERS, params, torch.as_tensor(x1)[None],
+                          dtype=dtype)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -301,9 +302,11 @@ def test_submit_validation(tiny):
 # ---------------------------------------------------------------------------
 # The same stream through both packages' engines
 # ---------------------------------------------------------------------------
-def _stream_pair(tiny, *, pipelined, profile, wire=None, n=12):
+def _stream_pair(tiny, *, pipelined, profile, wire=None, n=12,
+                 dtype="fp32"):
     """The same arrivals, the same seeded links and tier models, through
-    JAX's engine and the port's.  Returns ((engine, requests), ...)."""
+    JAX's engine and the port's at the storage policy ``dtype``.  Returns
+    ((engine, requests), ...)."""
     jp, tp, xs = tiny
     arrivals = [0.002 * (i // 3) for i in range(n)]
     out = []
@@ -317,7 +320,7 @@ def _stream_pair(tiny, *, pipelined, profile, wire=None, n=12):
         tiers = serve._tier_fault_models(
             "crash" if profile == "crash" else None, hw, links[0]._clock)
         kw = dict(hw=hw, max_batch=4, pipelined=pipelined, wire=wire,
-                  links=links, tier_faults=tiers, jitter_seed=3,
+                  dtype=dtype, links=links, tier_faults=tiers, jitter_seed=3,
                   policy=rt_mod.RetryPolicy(**TEST_POLICY))
         if pkg == "jax":
             eng = eng_mod.CnnServingEngine({"tiny": (layers, params)}, **kw)
@@ -330,12 +333,13 @@ def _stream_pair(tiny, *, pipelined, profile, wire=None, n=12):
     return out
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("profile", ["clean", "drop30", "crash"])
 @pytest.mark.parametrize("pipelined", [True, False],
                          ids=["pipelined", "sequential"])
-def test_stream_stats_and_logits_match_jax(tiny, pipelined, profile):
+def test_stream_stats_and_logits_match_jax(tiny, pipelined, profile, dtype):
     (je, jreqs), (te, treqs) = _stream_pair(tiny, pipelined=pipelined,
-                                            profile=profile)
+                                            profile=profile, dtype=dtype)
     js, ts = je.stats(), te.stats()
     assert set(ts) == set(js)
     for key in js:
@@ -353,12 +357,14 @@ def test_stream_stats_and_logits_match_jax(tiny, pipelined, profile):
             assert jr.logits is None
             continue
         served += 1
-        want = np.asarray(jr.logits)
+        want = np.asarray(jr.logits.astype(np.float32))
+        assert tr.logits.dtype == (torch.bfloat16 if dtype == "bf16"
+                                   else torch.float32)
         scale = max(float(np.max(np.abs(want))), 1e-30)
-        assert float(np.max(np.abs(tr.logits.numpy() - want))) \
-            <= JAX_TOL * scale
+        assert float(np.max(np.abs(tr.logits.float().numpy() - want))) \
+            <= JAX_TOL[dtype] * scale
         if pipelined:
-            assert torch.equal(tr.logits, _ref(tp, tr.x))
+            assert torch.equal(tr.logits, _ref(tp, tr.x, dtype))
     assert served > 0
 
 
