@@ -28,14 +28,17 @@ untraced warm-up on the same shapes, under the storage policy ``--dtype``
   with ``data`` (the prefetcher's ``next``), ``forward`` (``loss_fn``),
   ``backward`` and ``optimizer`` (``apply_updates``) spans.
 
-The runtime's stages are wrapped in ``record_function`` spans here, in the
-script: stage compute (``ChainRuntime._run``), boundary encode, link send,
-decode.  Prints, per configuration and unit of work (a request, or a
-decode pass): host time, device busy time (the kernels' and copies' own
-time), the device's idle share, kernel launches, the memory copies between
-host and card by kind (``Memcpy DtoH``, ``Memcpy HtoD``, ...), the host
-time of each span, and the device kernels by total time.  ``--src`` is the
-``src`` directory whose ``repro_torch`` is profiled (default: this
+The CNN paths read the program's own spans (``repro_torch/spans.py``):
+``chain/stage`` (``ChainRuntime._run``), ``codec/encode``, ``link/send``
+and ``codec/decode``; on a ``--src`` tree whose program has no spans of
+its own their columns read zero.  The decode and train spans are wrapped
+around the program's functions here, in the script.  Prints, per
+configuration and unit of work (a request, or a decode pass): host time,
+device busy time (the kernels' and copies' own time), the device's idle
+share, kernel launches, the memory copies between host and card by kind
+(``Memcpy DtoH``, ``Memcpy HtoD``, ...), the host time of each span,
+and the device kernels by total time.  ``--src`` is the ``src``
+directory whose ``repro_torch`` is profiled (default: this
 checkout's), e.g. that of a ``git archive`` of the parent commit unpacked
 into a git-ignored directory, to compare two trees in one call.  Writes the
 same to ``chiprun_out/profile_main_path_<label>.json`` and a Chrome trace
@@ -62,8 +65,7 @@ CONFIGS = [
 ]
 STREAM = ["--tiers", "3", "--wire-dtype", "int8", "--concurrency", "16",
           "--max-batch", "4"]
-SPANS = ("stage_compute", "encode_boundary", "send_with_retry",
-         "decode_boundary")
+SPANS = ("chain/stage", "codec/encode", "link/send", "codec/decode")
 DECODE_SPANS = ("prefill", "decode_step")
 TRAIN_SPANS = ("data", "forward", "backward", "optimizer")
 
@@ -81,14 +83,17 @@ def _wrap(torch, owner, name, label):
 def _summary(prof, spans, n, wall):
     """Device events per unit of work (n units over ``wall`` seconds).
     Device time counts the device's own events (kernels, copies): CPU ops
-    also report their kernels' time, and the spans appear again as
-    device-side annotations covering their kernels."""
+    also report their kernels' time, and every host span, the script's and
+    the program's alike, appears again as a device-side annotation
+    covering its kernels, under the span's name."""
     from torch.autograd import DeviceType
+    averages = prof.key_averages()
+    host = {e.key for e in averages if e.device_type == DeviceType.CPU}
     device = sorted(
         ((e.key, e.self_device_time_total / n, e.count / n)
-         for e in prof.key_averages()
+         for e in averages
          if e.device_type == DeviceType.CUDA
-         and e.self_device_time_total > 0 and e.key not in spans),
+         and e.self_device_time_total > 0 and e.key not in host),
         key=lambda r: -r[1])
     busy = sum(us for _, us, _ in device) / 1e6
     span_ms = dict.fromkeys(spans, 0.0)
@@ -289,7 +294,6 @@ def main() -> int:
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
-    from repro_torch.runtime import runtime as rt_mod
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -298,9 +302,6 @@ def main() -> int:
     print(card, args.label, os.path.abspath(args.src))
     strict_fp32()
     _build.build_all()
-    _wrap(torch, rt_mod.ChainRuntime, "_run", "stage_compute")
-    for name in SPANS[1:]:
-        _wrap(torch, rt_mod, name, name)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]

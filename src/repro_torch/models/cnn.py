@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.core.dtype_policy import conv_dtype, policy_torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.kernels import conv2d as kconv
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,16 +283,17 @@ def apply_layer(layer: Layer, params: Any, x: torch.Tensor,
         # input element covered when n % out != 0
         return F.adaptive_avg_pool2d(x, layer.out_hw)
     if layer.kind in ("linear", "gap_linear"):
-        if layer.kind == "linear" and x.ndim > 2:
-            x = x.reshape(x.shape[0], -1)
-        if layer.kind == "gap_linear" and x.ndim == 4:
-            x = x.mean(dim=(2, 3))
-        # weights and activations stored in the policy dtype, matmul in
-        # fp32 (TF32 stays off: device.strict_fp32)
-        tdt = policy_torch_dtype(conv_dtype(dtype))
-        w = params["w"].to(tdt).float()
-        y = torch.matmul(x.float(), w) + params["b"]
-        return y.to(tdt)
+        with span("model/linear"):
+            if layer.kind == "linear" and x.ndim > 2:
+                x = x.reshape(x.shape[0], -1)
+            if layer.kind == "gap_linear" and x.ndim == 4:
+                x = x.mean(dim=(2, 3))
+            # weights and activations stored in the policy dtype, matmul
+            # in fp32 (TF32 stays off: device.strict_fp32)
+            tdt = policy_torch_dtype(conv_dtype(dtype))
+            w = params["w"].to(tdt).float()
+            y = torch.matmul(x.float(), w) + params["b"]
+            return y.to(tdt)
     if layer.kind == "invres":
         y = x
         if "expand" in params:
@@ -513,15 +515,21 @@ def apply_cnn(layers: list[Layer], params, x: torch.Tensor, *,
         x = x if x.dtype == tdt else x.to(tdt)
     for i, n, act, pool_k, pool_s in fusion_walk(layers, start, stop):
         layer = layers[i]
-        if n == 1:
+        if layer.kind not in ("conv", "invres"):
             x = apply_layer(layer, params[i], x, dtype=dt)
             continue
-        conv_out = layer_out_shape(layer, tuple(x.shape[1:]))
-        if pool_k:
-            layer_out_shape(layers[i + 2], conv_out)  # named geom check
-        x = _conv2d(x, params[i]["w"], params[i]["b"], layer.stride,
-                    layer.pad, activation=act, pool_k=pool_k, pool_s=pool_s,
-                    dtype=dt)
+        # around the call into the conv kernel, never inside it: a
+        # profiler credits each launch to the innermost range open
+        with span("model/conv"):
+            if n == 1:
+                x = apply_layer(layer, params[i], x, dtype=dt)
+                continue
+            conv_out = layer_out_shape(layer, tuple(x.shape[1:]))
+            if pool_k:
+                layer_out_shape(layers[i + 2], conv_out)  # named geom check
+            x = _conv2d(x, params[i]["w"], params[i]["b"], layer.stride,
+                        layer.pad, activation=act, pool_k=pool_k,
+                        pool_s=pool_s, dtype=dt)
     return x
 
 

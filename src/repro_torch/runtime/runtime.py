@@ -57,6 +57,7 @@ from repro_torch.runtime.transfer import (RetryPolicy, TransferFailed,
                                     send_with_retry)
 from repro_torch.runtime.wire import (decode_boundary, encode_boundary,
                                       host_bytes, tensor_from_bytes)
+from repro_torch.spans import span
 
 
 class SplitUnrecoverable(RuntimeError):
@@ -722,8 +723,9 @@ class ChainRuntime:
 
     # -- stages --------------------------------------------------------
     def _run(self, x, start: int, stop: int):
-        return cnn_lib.apply_cnn(self.layers, self.params, x, start=start,
-                                 stop=stop, dtype=self.dtype)
+        with span("chain/stage"):
+            return cnn_lib.apply_cnn(self.layers, self.params, x,
+                                     start=start, stop=stop, dtype=self.dtype)
 
     def _stage_seconds(self, tier_id: int, start: int, stop: int) -> float:
         """Whole-batch compute seconds for layers [start, stop) on a tier

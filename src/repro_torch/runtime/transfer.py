@@ -24,6 +24,7 @@ from repro_torch.runtime import events as ev
 from repro_torch.runtime.events import EventLog
 from repro_torch.runtime.faults import (ENV_PREFIX, FaultyLink, LinkDropped,
                                   LinkError, LinkOutage, LinkTimeout)
+from repro_torch.spans import span
 
 # Framing overhead per wire attempt: crc32 (4B) + payload length (4B).
 # The cost model prices the same constant (costs.FRAME_HEADER_BYTES) in
@@ -39,6 +40,11 @@ class ChecksumError(LinkError):
     chaos harness uses it to attribute quantized-frame corruption."""
 
     part: str | None = None
+
+
+def _crc32(data: bytes) -> int:
+    with span("link/checksum"):
+        return zlib.crc32(data)
 
 
 class FrameError(ValueError):
@@ -60,7 +66,7 @@ def pack_frames(*parts: bytes) -> bytes:
     optimiser prices exactly these bytes."""
     buf = [struct.pack("<I", len(parts))]
     for p in parts:
-        buf.append(struct.pack("<II", len(p), zlib.crc32(p)))
+        buf.append(struct.pack("<II", len(p), _crc32(p)))
         buf.append(p)
     return b"".join(buf)
 
@@ -91,7 +97,7 @@ def unpack_frames(buf: bytes, labels: tuple[str, ...] = ()
         part = buf[off:off + length]
         off += length
         label = labels[i] if i < len(labels) else f"part{i}"
-        if zlib.crc32(part) != crc:
+        if _crc32(part) != crc:
             raise FrameError(f"crc32 mismatch in part {label!r}", label)
         parts.append(part)
     if off != len(buf):
@@ -212,57 +218,60 @@ def send_with_retry(link: FaultyLink, payload: bytes,
       (e.g. ``("scales", "data")`` for int8 boundaries).  Integrity then
       comes from the embedded per-part crc32s instead of the outer
       checksum, so a corruption event names the part it hit."""
-    log = log if log is not None else EventLog()
-    crc = zlib.crc32(payload)
-    size = len(payload) + HEADER_BYTES
-    scheduled = at is not None
-    t = float(at) if scheduled else link.clock
-    t_start = t
-    wire_bytes = 0
-    for attempt in range(1, policy.max_attempts + 1):
-        log.emit(ev.ATTEMPT, t, what=what, attempt=attempt, nbytes=size)
-        wire_bytes += size
-        try:
-            if scheduled:
-                delivered, elapsed = link.send_at(t, payload,
-                                                  policy.timeout_s)
-            else:
-                delivered, elapsed = link.send(payload, policy.timeout_s)
-            if framed is not None:
-                try:
-                    unpack_frames(delivered, framed)
-                except FrameError as fe:
-                    err = ChecksumError(
-                        f"{fe} on attempt {attempt}", elapsed)
-                    err.part = fe.part
-                    raise err from fe
-            elif zlib.crc32(delivered) != crc:
-                raise ChecksumError(
-                    f"crc32 mismatch on attempt {attempt}", elapsed)
-            t += elapsed
-            log.emit(ev.TRANSFER_OK, t, what=what,
-                     attempt=attempt, elapsed_s=elapsed)
-            return TransferOutcome(
-                payload=delivered, attempts=attempt,
-                elapsed_s=t - t_start, success_elapsed_s=elapsed,
-                wire_bytes=wire_bytes, goodput_bytes=size)
-        except LinkError as e:
-            t += e.elapsed_s
-            part = getattr(e, "part", None)
-            log.emit(_FAIL_KINDS[type(e)], t, what=what,
-                     attempt=attempt, elapsed_s=e.elapsed_s,
-                     **({"part": part} if part else {}))
-            if attempt == policy.max_attempts:
-                log.emit(ev.GIVE_UP, t, what=what, attempts=attempt)
-                raise TransferFailed(
-                    f"{what}: {attempt} attempts exhausted ({e})",
-                    attempts=attempt, elapsed_s=t - t_start,
-                    wire_bytes=wire_bytes) from e
-            u = float(rng.uniform()) if rng is not None else 0.0
-            wait = policy.backoff_s(attempt, u)
-            if not scheduled:
-                link.advance(wait)
-            t += wait
-            log.emit(ev.BACKOFF, t, what=what, attempt=attempt,
-                     wait_s=wait)
-    raise AssertionError("unreachable")  # pragma: no cover
+    with span("link/send"):
+        log = log if log is not None else EventLog()
+        crc = _crc32(payload)
+        size = len(payload) + HEADER_BYTES
+        scheduled = at is not None
+        t = float(at) if scheduled else link.clock
+        t_start = t
+        wire_bytes = 0
+        for attempt in range(1, policy.max_attempts + 1):
+            log.emit(ev.ATTEMPT, t, what=what, attempt=attempt, nbytes=size)
+            wire_bytes += size
+            try:
+                with span("link/transmit"):
+                    if scheduled:
+                        delivered, elapsed = link.send_at(t, payload,
+                                                          policy.timeout_s)
+                    else:
+                        delivered, elapsed = link.send(payload,
+                                                       policy.timeout_s)
+                if framed is not None:
+                    try:
+                        unpack_frames(delivered, framed)
+                    except FrameError as fe:
+                        err = ChecksumError(
+                            f"{fe} on attempt {attempt}", elapsed)
+                        err.part = fe.part
+                        raise err from fe
+                elif _crc32(delivered) != crc:
+                    raise ChecksumError(
+                        f"crc32 mismatch on attempt {attempt}", elapsed)
+                t += elapsed
+                log.emit(ev.TRANSFER_OK, t, what=what,
+                         attempt=attempt, elapsed_s=elapsed)
+                return TransferOutcome(
+                    payload=delivered, attempts=attempt,
+                    elapsed_s=t - t_start, success_elapsed_s=elapsed,
+                    wire_bytes=wire_bytes, goodput_bytes=size)
+            except LinkError as e:
+                t += e.elapsed_s
+                part = getattr(e, "part", None)
+                log.emit(_FAIL_KINDS[type(e)], t, what=what,
+                         attempt=attempt, elapsed_s=e.elapsed_s,
+                         **({"part": part} if part else {}))
+                if attempt == policy.max_attempts:
+                    log.emit(ev.GIVE_UP, t, what=what, attempts=attempt)
+                    raise TransferFailed(
+                        f"{what}: {attempt} attempts exhausted ({e})",
+                        attempts=attempt, elapsed_s=t - t_start,
+                        wire_bytes=wire_bytes) from e
+                u = float(rng.uniform()) if rng is not None else 0.0
+                wait = policy.backoff_s(attempt, u)
+                if not scheduled:
+                    link.advance(wait)
+                t += wait
+                log.emit(ev.BACKOFF, t, what=what, attempt=attempt,
+                         wait_s=wait)
+        raise AssertionError("unreachable")  # pragma: no cover

@@ -32,6 +32,7 @@ from repro_torch.kernels.quant import (default_channel_axis,
                                        dequantize_packed, quantize_packed,
                                        scale_count, values_offset)
 from repro_torch.runtime.transfer import pack_frames, unpack_frames
+from repro_torch.spans import span
 
 # Part labels for framed int8 payloads -- the chaos harness keys on these
 # to count scales-frame vs data-frame corruption hits.
@@ -79,12 +80,13 @@ def _to_host(buf: torch.Tensor) -> torch.Tensor:
     """``buf`` in host memory: a device buffer in one asynchronous copy into
     pinned memory (PyTorch's caching host allocator), then one wait on the
     stream."""
-    if buf.device.type == "cpu":
-        return buf
-    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-    host.copy_(buf, non_blocking=True)
-    torch.cuda.current_stream(buf.device).synchronize()
-    return host
+    with span("codec/to_host"):
+        if buf.device.type == "cpu":
+            return buf
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf, non_blocking=True)
+        torch.cuda.current_stream(buf.device).synchronize()
+        return host
 
 
 def encode_boundary(arr: torch.Tensor, wire: str
@@ -95,44 +97,49 @@ def encode_boundary(arr: torch.Tensor, wire: str
     ``follow`` with ``core.dtype_policy.resolve_wire_dtype`` first.  When
     the wire format equals the tensor's dtype the payload is its raw
     bytes (the legacy path)."""
-    shape = tuple(int(d) for d in arr.shape)
-    raw_bytes = int(arr.numel()) * arr.element_size()
-    if wire == "int8":
-        axis = default_channel_axis(arr.ndim)
-        groups = scale_count(shape, axis)
-        host = memoryview(_to_host(quantize_packed(arr, axis)).numpy())
-        payload = pack_frames(host[:4 * groups],
-                              host[values_offset(groups):])
-        return payload, BoundaryMeta(
+    with span("codec/encode"):
+        shape = tuple(int(d) for d in arr.shape)
+        raw_bytes = int(arr.numel()) * arr.element_size()
+        if wire == "int8":
+            axis = default_channel_axis(arr.ndim)
+            groups = scale_count(shape, axis)
+            host = memoryview(_to_host(quantize_packed(arr, axis)).numpy())
+            with span("codec/pack"):
+                payload = pack_frames(host[:4 * groups],
+                                      host[values_offset(groups):])
+            return payload, BoundaryMeta(
+                wire=wire, storage=arr.dtype, shape=shape, device=arr.device,
+                axis=axis, framed=INT8_FRAME_LABELS, raw_bytes=raw_bytes)
+        tdt = policy_torch_dtype(wire)
+        sent = arr if arr.dtype == tdt else arr.to(tdt)
+        return host_bytes(sent), BoundaryMeta(
             wire=wire, storage=arr.dtype, shape=shape, device=arr.device,
-            axis=axis, framed=INT8_FRAME_LABELS, raw_bytes=raw_bytes)
-    tdt = policy_torch_dtype(wire)
-    sent = arr if arr.dtype == tdt else arr.to(tdt)
-    return host_bytes(sent), BoundaryMeta(
-        wire=wire, storage=arr.dtype, shape=shape, device=arr.device,
-        raw_bytes=raw_bytes)
+            raw_bytes=raw_bytes)
 
 
 def decode_boundary(payload: bytes, meta: BoundaryMeta) -> torch.Tensor:
     """Invert ``encode_boundary`` back to a tensor in the storage dtype
     on ``meta.device``.  Decoding an uncorrupted payload reproduces
     ``boundary_roundtrip(arr, meta.wire)`` bit-for-bit."""
-    if meta.wire == "int8":
-        s_b, q_b = unpack_frames(memoryview(payload),
-                                 meta.framed or INT8_FRAME_LABELS)
-        groups = scale_count(meta.shape, meta.axis)
-        off, n = values_offset(groups), math.prod(meta.shape)
-        if len(s_b) != 4 * groups or len(q_b) != n:
-            raise ValueError(f"decode_boundary: frames of {len(s_b)} and "
-                             f"{len(q_b)} bytes for {groups} scales and "
-                             f"{n} values")
-        host = torch.empty(off + n, dtype=torch.uint8,
-                           pin_memory=meta.device.type == "cuda")
-        h = host.numpy()
-        h[:4 * groups] = np.frombuffer(s_b, np.uint8)
-        h[off:] = np.frombuffer(q_b, np.uint8)
-        return dequantize_packed(host.to(meta.device, non_blocking=True),
-                                 meta.shape, meta.axis, meta.storage)
-    x = tensor_from_bytes(payload, policy_torch_dtype(meta.wire), meta.shape,
-                          meta.device)
-    return x if x.dtype == meta.storage else x.to(meta.storage)
+    with span("codec/decode"):
+        if meta.wire == "int8":
+            s_b, q_b = unpack_frames(memoryview(payload),
+                                     meta.framed or INT8_FRAME_LABELS)
+            groups = scale_count(meta.shape, meta.axis)
+            off, n = values_offset(groups), math.prod(meta.shape)
+            if len(s_b) != 4 * groups or len(q_b) != n:
+                raise ValueError(f"decode_boundary: frames of {len(s_b)} "
+                                 f"and {len(q_b)} bytes for {groups} "
+                                 f"scales and {n} values")
+            with span("codec/upload"):
+                host = torch.empty(off + n, dtype=torch.uint8,
+                                   pin_memory=meta.device.type == "cuda")
+                h = host.numpy()
+                h[:4 * groups] = np.frombuffer(s_b, np.uint8)
+                h[off:] = np.frombuffer(q_b, np.uint8)
+                return dequantize_packed(
+                    host.to(meta.device, non_blocking=True),
+                    meta.shape, meta.axis, meta.storage)
+        x = tensor_from_bytes(payload, policy_torch_dtype(meta.wire),
+                              meta.shape, meta.device)
+        return x if x.dtype == meta.storage else x.to(meta.storage)

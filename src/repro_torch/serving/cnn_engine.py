@@ -81,6 +81,7 @@ from repro_torch.runtime.runtime import (ChainInferenceResult,
                                          ChainResources, ChainRuntime,
                                          SplitUnrecoverable)
 from repro_torch.runtime.transfer import RetryPolicy
+from repro_torch.spans import span
 
 MAX_BATCH_ENV = "REPRO_SERVE_MAX_BATCH"
 QUEUE_DEPTH_ENV = "REPRO_SERVE_QUEUE_DEPTH"
@@ -301,38 +302,40 @@ class CnnServingEngine:
         arrival on the virtual clock (default: now); ``deadline_s`` is a
         relative end-to-end SLO.  Raises ``QueueFullError`` when the
         bounded queue is at depth -- the shed is counted either way."""
-        if model is None:
-            if len(self._models) != 1:
-                raise ValueError(
-                    f"engine serves {sorted(self._models)}: pass model=")
-            model = next(iter(self._models))
-        if model not in self._models:
-            raise ValueError(f"unknown model {model!r}; registered: "
-                             f"{sorted(self._models)}")
-        x = torch.as_tensor(x, device=self.device)
-        if x.ndim == 4 and x.shape[0] == 1:
-            x = x[0]
-        if deadline_s is not None and deadline_s <= 0:
-            raise ValueError(f"deadline_s must be positive, "
-                             f"got {deadline_s}")
-        arrival = self.clock.now if at is None else float(at)
-        self._rid += 1
-        self.n_submitted += 1
-        key = (model, tuple(int(s) for s in x.shape), self._storage,
-               self._wire_key)
-        req = CnnRequest(rid=self._rid, model=model, x=x,
-                         arrival_s=arrival, deadline_s=deadline_s,
-                         bucket=key)
-        if self.n_pending >= self.max_queue:
-            req.status = "shed"
-            self.n_shed += 1
-            self.log.emit(ev.QUEUE_SHED, arrival, rid=req.rid,
-                          depth=self.n_pending, max_queue=self.max_queue)
-            raise QueueFullError(
-                f"queue depth {self.n_pending} >= max_queue "
-                f"{self.max_queue}: request {req.rid} shed", req)
-        self._bucket_for(key).pending.append(req)
-        return req
+        with span("serve/submit"):
+            if model is None:
+                if len(self._models) != 1:
+                    raise ValueError(
+                        f"engine serves {sorted(self._models)}: pass model=")
+                model = next(iter(self._models))
+            if model not in self._models:
+                raise ValueError(f"unknown model {model!r}; registered: "
+                                 f"{sorted(self._models)}")
+            with span("serve/upload"):
+                x = torch.as_tensor(x, device=self.device)
+            if x.ndim == 4 and x.shape[0] == 1:
+                x = x[0]
+            if deadline_s is not None and deadline_s <= 0:
+                raise ValueError(f"deadline_s must be positive, "
+                                 f"got {deadline_s}")
+            arrival = self.clock.now if at is None else float(at)
+            self._rid += 1
+            self.n_submitted += 1
+            key = (model, tuple(int(s) for s in x.shape), self._storage,
+                   self._wire_key)
+            req = CnnRequest(rid=self._rid, model=model, x=x,
+                             arrival_s=arrival, deadline_s=deadline_s,
+                             bucket=key)
+            if self.n_pending >= self.max_queue:
+                req.status = "shed"
+                self.n_shed += 1
+                self.log.emit(ev.QUEUE_SHED, arrival, rid=req.rid,
+                              depth=self.n_pending, max_queue=self.max_queue)
+                raise QueueFullError(
+                    f"queue depth {self.n_pending} >= max_queue "
+                    f"{self.max_queue}: request {req.rid} shed", req)
+            self._bucket_for(key).pending.append(req)
+            return req
 
     def _bucket_for(self, key: tuple) -> _Bucket:
         bucket = self._buckets.get(key)
@@ -383,69 +386,72 @@ class CnnServingEngine:
     def step(self) -> bool:
         """Dispatch one batch (FIFO across buckets by head arrival).
         Returns False when nothing is pending."""
-        live = [b for b in self._buckets.values() if b.pending]
-        if not live:
-            return False
-        bucket = min(live, key=lambda b: b.pending[0].arrival_s)
-        batch: list[CnnRequest] = []
-        start: float | None = None
-        while bucket.pending and len(batch) < self.max_batch:
-            req = bucket.pending[0]
-            est = self._earliest_start(req.arrival_s) if start is None \
-                else start
-            if req.deadline_s is not None \
-                    and est > req.arrival_s + req.deadline_s:
-                # cannot possibly meet its SLO: expire before computing
-                bucket.pending.pop(0)
-                self._expire(req, est, phase="queued")
+        with span("serve/step"):
+            live = [b for b in self._buckets.values() if b.pending]
+            if not live:
+                return False
+            bucket = min(live, key=lambda b: b.pending[0].arrival_s)
+            batch: list[CnnRequest] = []
+            start: float | None = None
+            while bucket.pending and len(batch) < self.max_batch:
+                req = bucket.pending[0]
+                est = self._earliest_start(req.arrival_s) if start is None \
+                    else start
+                if req.deadline_s is not None \
+                        and est > req.arrival_s + req.deadline_s:
+                    # cannot possibly meet its SLO: expire before computing
+                    bucket.pending.pop(0)
+                    self._expire(req, est, phase="queued")
+                    if start is None:
+                        return True      # head changed; re-pick the bucket
+                    continue
                 if start is None:
-                    return True      # head changed; re-pick the bucket
-                continue
-            if start is None:
-                start = est
-            elif req.arrival_s > start:
-                break                # not arrived by launch time
-            bucket.pending.pop(0)
-            batch.append(req)
-        if not batch:
-            return True              # expired the head(s); queue shrank
-        xb = torch.stack([r.x for r in batch])
-        try:
-            res = bucket.rt.infer(xb, at=start)
-        except SplitUnrecoverable:
-            for r in batch:
-                r.status = "failed"
-                r.start_s = start
-            self.n_failed += len(batch)
+                    start = est
+                elif req.arrival_s > start:
+                    break                # not arrived by launch time
+                bucket.pending.pop(0)
+                batch.append(req)
+            if not batch:
+                return True              # expired the head(s); queue shrank
+            xb = torch.stack([r.x for r in batch])
+            try:
+                # outside ``infer``, so a range around it keeps its self time
+                with span("chain/infer"):
+                    res = bucket.rt.infer(xb, at=start)
+            except SplitUnrecoverable:
+                for r in batch:
+                    r.status = "failed"
+                    r.start_s = start
+                self.n_failed += len(batch)
+                self.n_batches += 1
+                self._batch_sizes.append(len(batch))
+                return True
+            finish = start + res.chain_elapsed_s
+            if not self.pipelined:
+                self._seq_free = max(self._seq_free, finish)
+            per_request = len(res.microbatch_finish_s) == len(batch)
+            for i, req in enumerate(batch):
+                req.logits = res.logits[i]
+                req.result = res
+                req.start_s = start
+                req.finish_s = res.microbatch_finish_s[i] if per_request \
+                    else finish
+                req.latency_s = req.finish_s - req.arrival_s
+                if req.deadline_s is not None \
+                        and req.latency_s > req.deadline_s:
+                    self._expire(req, req.finish_s, phase="in_flight")
+                else:
+                    req.status = "served"
+                    self.n_served += 1
+                    bucket.served += 1
+                    self._latencies.append(req.latency_s)
+                self._t_first_arrival = min(self._t_first_arrival,
+                                            req.arrival_s)
+                self._t_last_finish = max(self._t_last_finish, req.finish_s)
             self.n_batches += 1
+            bucket.batches += 1
             self._batch_sizes.append(len(batch))
             return True
-        finish = start + res.chain_elapsed_s
-        if not self.pipelined:
-            self._seq_free = max(self._seq_free, finish)
-        per_request = len(res.microbatch_finish_s) == len(batch)
-        for i, req in enumerate(batch):
-            req.logits = res.logits[i]
-            req.result = res
-            req.start_s = start
-            req.finish_s = res.microbatch_finish_s[i] if per_request \
-                else finish
-            req.latency_s = req.finish_s - req.arrival_s
-            if req.deadline_s is not None \
-                    and req.latency_s > req.deadline_s:
-                self._expire(req, req.finish_s, phase="in_flight")
-            else:
-                req.status = "served"
-                self.n_served += 1
-                bucket.served += 1
-                self._latencies.append(req.latency_s)
-            self._t_first_arrival = min(self._t_first_arrival,
-                                        req.arrival_s)
-            self._t_last_finish = max(self._t_last_finish, req.finish_s)
-        self.n_batches += 1
-        bucket.batches += 1
-        self._batch_sizes.append(len(batch))
-        return True
 
     def run_until_idle(self) -> None:
         while self.step():
