@@ -7,12 +7,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all at once); every dense conv instantiation and every flash
-   attention one must hold tensor-core ``HGMMA``s (wgmma) in its SASS,
-   every SSD product kernel (chunk states, outputs) ``HMMA``s
-   (mma.sync); no depthwise conv, flash, WKV, SSD, quantize or
-   dequantize kernel may have a stack frame or spill (``-Xptxas -v``,
-   ``cuobjdump -sass``);
+   source, all at once); every dense conv instantiation (the
+   one-warpgroup kernel's six, the warp-specialised kernel's three) and
+   every flash attention one must hold tensor-core ``HGMMA``s (wgmma) in
+   its SASS, every SSD product kernel (chunk states, outputs) ``HMMA``s
+   (mma.sync); no depthwise or warp-specialised conv, flash, WKV, SSD,
+   quantize or dequantize kernel may have a stack frame or spill
+   (``-Xptxas -v``, ``cuobjdump -sass``);
 3. hold the conv kernels against their plain PyTorch version at every
    distinct conv (and fused conv+act+pool) shape of the five served CNNs
    (AlexNet, VGG11, VGG13, VGG16, MobileNetV2) at 224 px, batches 1 and
@@ -22,7 +23,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    and bf16 (2e-2 of scale); every fused conv equals the unfused conv
    followed by its activation and pool, bitwise (bf16's rounding
    commutes with relu, relu6's clip and max-pool), and at every shape a
-   batch-4 launch equals four batch-1 launches, bitwise;
+   batch-4 launch equals four batch-1 launches, bitwise; wherever the
+   planner gives a conv the warp-specialised kernel, its output equals
+   the one-warpgroup kernel's (``plan_conv_dense``) on the same inputs,
+   bitwise;
 4. hold the int8 codec against its plain version, bitwise, fp32 and
    bf16, at every boundary a cut of a served model can leave at batch 1
    and 4 (so every boundary any plan, policy, re-pick or merge of phases
@@ -63,7 +67,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    times and bound.  Apart from those sums, VGG16's batch-4 224 px
    forward: its dense convs (kernel, bound, ``F.conv2d``) and the whole
    forward in a CUDA graph (device time with no host gap), fp32 and bf16,
-   beside phase 5's ms a request.  It runs after phases 10 and 12 (and
+   beside phase 5's ms a request; and VGG16's 13 conv shapes at bf16,
+   batches 16 and 1, on both dense kernels (the planner's pick and the
+   one-warpgroup kernel) beside each shape's bound and ``F.conv2d``
+   (``conv_paths`` in ``chiprun_out/chip_smoke.json``).  It runs after
+   phases 10 and 12 (and
    before phase 11, whose heavy training stays out of the kernel
    timings), since it times phase 7's shapes too;
 7. the sequence kernels' path: ``repro_torch.kernels.ops`` at batch 2, in
@@ -276,7 +284,9 @@ SOURCES = {
     "mamba2_ssd": ("src/repro_torch/csrc/mamba2_ssd.cu",
                    "src/repro/kernels/mamba2_ssd.py:24"),
 }
-CNN_KERNELS = ("conv2d_dense", "conv2d_depthwise", "quantize", "dequantize")
+CNN_KERNELS = ("conv2d_dense", "conv2d_dense_ws", "conv2d_depthwise",
+               "quantize", "dequantize")
+CONV_KERNELS = ("conv2d_dense", "conv2d_dense_ws", "conv2d_depthwise")
 # the paper's five CNNs, every one served by phases 5 and 9
 SERVED = ("alexnet", "vgg11", "vgg13", "vgg16", "mobilenetv2")
 POLICIES = ("fp32", "bf16")
@@ -369,6 +379,14 @@ DW_POOL_CASES = [
 ]
 
 
+def conv_plan(planner, call, dtype):
+    """``planner`` (``plan_conv`` or ``plan_conv_dense``) of one call."""
+    return planner(call["x_shape"], call["w_shape"], stride=call["stride"],
+                   pad=call["pad"], groups=call["groups"],
+                   activation=call["activation"], pool_k=call["pool_k"],
+                   pool_s=call["pool_s"], dtype=dtype)
+
+
 def make_inputs(torch, call, dtype, gen, dev):
     cout, cin_pg, k, _ = call["w_shape"]
     x = torch.randn(call["x_shape"], generator=gen)
@@ -397,6 +415,7 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
     cases = conv_cases(cnn, [(m, b, at224) for b in (1, 4)
                              for m in SERVED] + EXAMPLE_CNNS)
     checked = set()
+    n_ws = 0
     for call in cases + DW_POOL_CASES:
         for dname, dtype, tol in (("fp32", torch.float32, FP32_TOL),
                                   ("bf16", torch.bfloat16, BF16_TOL)):
@@ -406,8 +425,15 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
             want = ref.conv2d_plain(x, w, bias=b, **kw)
             torch.cuda.synchronize()
             err, scale = rel_err(got, want)
-            kind = "conv2d_depthwise" if call["groups"] > 1 \
-                and call["groups"] == call["x_shape"][1] else "conv2d_dense"
+            plan = conv_plan(kconv.plan_conv, call, dtype)
+            kind = "conv2d_depthwise" if plan.depthwise else "conv2d_dense"
+            if plan.ws:
+                # the same sums as the one-warpgroup kernel's, bitwise
+                old = kconv.launch(x, w, b, conv_plan(kconv.plan_conv_dense,
+                                                      call, dtype))
+                check(torch.equal(got, old), f"conv2d_dense_ws {dname} "
+                      f"{call}: differs from conv2d_dense")
+                n_ws += 1
             check(err <= tol * scale,
                   f"{kind} {dname} {call}: max abs err {err} > "
                   f"{tol} * {scale}")
@@ -434,15 +460,18 @@ def phase_conv(torch, F, cnn, kconv, ref, dev):
             check(torch.equal(y4, y1),
                   f"{kind} {dname} {call}: batch 4 != 4 x batch 1")
             n_batch += 1
-            rows.append(dict(kernel=kind, dtype=dname, model=call["model"],
+            rows.append(dict(kernel=plan.kernel, dtype=dname,
+                             model=call["model"],
                              x=list(call["x_shape"]), w=list(call["w_shape"]),
                              stride=call["stride"], pad=call["pad"],
                              act=call["activation"], pool=call["pool_k"],
                              max_abs_err=err, scale=scale))
+    check(n_ws > 0, "phase 3: no conv took the warp-specialised kernel")
     print(f"phase 3: {len(rows)} conv checks against the plain version "
           f"passed; {n_fused} fused convs equal their unfused chain "
           f"bitwise; {n_batch} batch-4 launches equal four batch-1 "
-          f"launches bitwise; worst abs err " + ", ".join(
+          f"launches bitwise; {n_ws} warp-specialised launches equal the "
+          f"one-warpgroup kernel's bitwise; worst abs err " + ", ".join(
               f"{k}/{d}={v:.3g}" for (k, d), v in sorted(worst.items()))
           + f" ({time.perf_counter() - t0:.1f} s)")
     return worst, rows, checked
@@ -581,8 +610,11 @@ def policy_runs(runs, bf16_labels) -> list[tuple]:
 
 def run_kernels(model: str, argv: list) -> list[str]:
     """The kernels a served run must launch: the dense conv always, the
-    depthwise conv for MobileNetV2 alone, the codec on the int8 wire."""
+    warp-specialised one for the VGGs at bf16, the depthwise conv for
+    MobileNetV2 alone, the codec on the int8 wire."""
     names = ["conv2d_dense"]
+    if model.startswith("vgg") and "bf16" in argv:
+        names.append("conv2d_dense_ws")
     if model == "mobilenetv2":
         names.append("conv2d_depthwise")
     if "int8" in argv:
@@ -591,10 +623,13 @@ def run_kernels(model: str, argv: list) -> list[str]:
 
 
 def check_run_launches(what: str, model: str, argv: list, counts: dict):
-    """Each kernel of ``run_kernels`` launched in the run, and no depthwise
-    conv outside MobileNetV2."""
+    """Each kernel of ``run_kernels`` launched in the run, no depthwise
+    conv outside MobileNetV2, and no warp-specialised one at fp32."""
     for name in run_kernels(model, argv):
         check(counts[name] > 0, f"{what}: {name} was never launched")
+    if "bf16" not in argv:
+        check(counts["conv2d_dense_ws"] == 0, f"{what}: "
+              f"{counts['conv2d_dense_ws']} warp-specialised conv launches")
     if model != "mobilenetv2":
         check(counts["conv2d_depthwise"] == 0, f"{what}: "
               f"{counts['conv2d_depthwise']} depthwise conv launches")
@@ -614,7 +649,7 @@ def check_geometries(what: str, seen: dict, counts: dict, conv_checked,
     counts over the same calls), and every geometry one that phases 3-4
     held against the plain version.  Returns the number of geometries of
     each kind."""
-    launched = {"conv": counts["conv2d_dense"] + counts["conv2d_depthwise"],
+    launched = {"conv": sum(counts[k] for k in CONV_KERNELS),
                 "quantize": counts["quantize"],
                 "dequantize": counts["dequantize"]}
     check(seen["calls"] == launched, f"{what}: {seen['calls']} launches "
@@ -996,6 +1031,57 @@ def phase_time_vgg16(torch, F, cnn, kconv, main_rows, dev) -> dict:
         f"{r['request_host_ms']:.2f} ms (host clock)"
         for d, r in out.items()))
     return out
+
+
+def phase_time_conv_paths(torch, F, cnn, kconv, dev, batches=(16, 1)):
+    """VGG16's 13 conv shapes at bf16 and each of ``batches``: the
+    planner's kernel, the one-warpgroup kernel (``plan_conv_dense``) and
+    ``F.conv2d``, timed in turns (phase 6's method), beside each shape's
+    bound.  Returns the rows and each batch's sums."""
+    gen = torch.Generator().manual_seed(16)
+    rows, sums = [], {}
+    for batch in batches:
+        total = dict(ms=0.0, dense_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for call in cnn.conv_launches(cnn.CNN_MODELS["vgg16"], batch=batch):
+            kw = conv_kwargs(call)
+            x, w, b = make_inputs(torch, call, torch.bfloat16, gen, dev)
+            plan = conv_plan(kconv.plan_conv, call, torch.bfloat16)
+            old = conv_plan(kconv.plan_conv_dense, call, torch.bfloat16)
+            timers = {
+                "ms": Timer(torch, lambda: kconv.launch(x, w, b, plan)),
+                "library_ms": Timer(torch, lambda: F.conv2d(
+                    x, w, b.to(torch.bfloat16), stride=call["stride"],
+                    padding=call["pad"]))}
+            if plan.ws:
+                timers["dense_ms"] = Timer(
+                    torch, lambda: kconv.launch(x, w, b, old))
+            t = in_turns(timers)
+            t.setdefault("dense_ms", t["ms"])
+            t_f, t_b, _ = conv_bound(call, "bf16")
+            row = dict(batch=batch, x=list(call["x_shape"]),
+                       w=list(call["w_shape"]), pool=call["pool_k"],
+                       kernel=plan.kernel, bn=plan.bn,
+                       tile=[plan.conv_th, plan.conv_tw], ctas=plan.ctas,
+                       nstage=plan.nstage, flop_ms=1e3 * t_f,
+                       byte_ms=1e3 * t_b, bound_ms=1e3 * max(t_f, t_b), **t)
+            row["roofline"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            for k in total:
+                total[k] += row[k]
+            print(f"  vgg16 b{batch} {tuple(call['x_shape'][1:])} -> "
+                  f"{call['w_shape'][0]}{' pool' if call['pool_k'] else ''}"
+                  f": {plan.kernel} (BN {plan.bn}, {plan.ctas} CTAs) "
+                  f"{t['ms']:.4f} ms, conv2d_dense {t['dense_ms']:.4f}, "
+                  f"F.conv2d {t['library_ms']:.4f}, bound "
+                  f"{row['bound_ms']:.4f} ({100 * row['roofline']:.1f}%)")
+        total["roofline"] = total["bound_ms"] / total["ms"]
+        sums[batch] = total
+    print(f"phase 6: vgg16 conv shapes, bf16 ({card_line()}): " + "; ".join(
+        f"batch {bt}: {r['ms']:.3f} ms (conv2d_dense alone "
+        f"{r['dense_ms']:.3f}, F.conv2d {r['library_ms']:.3f}, bound "
+        f"{r['bound_ms']:.3f}: {100 * r['roofline']:.1f}% of it)"
+        for bt, r in sums.items()))
+    return dict(rows=rows, sums=sums)
 
 
 # ---------------------------------------------------------------------------
@@ -2578,7 +2664,7 @@ def phase_examples(torch, launches, kconv, kquant, checked) -> dict:
                 check(counts["quantize"] > 0 and counts["dequantize"] > 0,
                       f"phase 13a quickstart int8: codec launches {counts}")
         if name != "torch_train_small":
-            check(counts["conv2d_dense"] > 0,
+            check(counts["conv2d_dense"] + counts["conv2d_dense_ws"] > 0,
                   f"phase 13a {label}: no conv launch ({counts})")
         runs[label] = row
     runs["geometries"] = check_geometries("phase 13a", seen, launched,
@@ -2812,12 +2898,18 @@ def phase_build(_build):
                   f"{r.get('spill_stores', '?')}/{r['instructions']}/"
                   f"{r['hgmma']}/{r['hmma']}" for n, r in kernels.items()))
     for name, r in report["conv2d"].items():
-        if name.startswith("conv2d_dense_kernel"):
+        if name.startswith("conv2d_dense"):
             check(r["hgmma"] > 0, f"{name}: no HGMMA in its SASS")
         if name.startswith("conv2d_depthwise_kernel"):
             check(r["stack"] == 0, f"{name}: {r['stack']} B stack frame")
+        if name.startswith("conv2d_dense_ws_kernel"):
+            check(r["stack"] == 0 and r["spill_stores"] == 0
+                  and r["spill_loads"] == 0,
+                  f"{name}: {r['stack']} B stack frame, spills "
+                  f"{r['spill_stores']}/{r['spill_loads']} B")
     found = [n.split("<")[0] for kernels in report.values() for n in kernels]
-    for name, want in (("conv2d_dense_kernel", 6), ("flash_kernel", 16),
+    for name, want in (("conv2d_dense_kernel", 6),
+                       ("conv2d_dense_ws_kernel", 3), ("flash_kernel", 16),
                        ("wkv_kernel", 8), ("ssd_states_kernel", 2),
                        ("ssd_output_kernel", 2), ("ssd_scan_kernel", 1),
                        ("quantize_kernel", 6), ("dequantize_kernel", 4)):
@@ -2915,6 +3007,7 @@ def main() -> int:
     agg, time_rows = phase_time(torch, F, cnn, kconv, kquant, ref,
                                 micro + batch4, dev)
     vgg16_time = phase_time_vgg16(torch, F, cnn, kconv, runs, dev)
+    conv_paths = phase_time_conv_paths(torch, F, cnn, kconv, dev)
     split_agg = {}
     for shape in SPLIT_CODEC_SHAPES:
         for dname, dtype in (("fp32", torch.float32),
@@ -2948,6 +3041,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
+            **({"launches_ws": counts["conv2d_dense_ws"],
+                "launches_ws_stream": stream_counts["conv2d_dense_ws"]}
+               if name == "conv2d_dense" else {}),
             **({"launches_stream": stream_counts[name]}
                if name in stream_counts else {}),
             **({"launches_split": split_counts[name],
@@ -2973,7 +3069,7 @@ def main() -> int:
                                for k, v in codec_plans.items()],
                   kernel_report=kernel_report,
                   mixer_checks=mixer_rows, runs=runs, timings=time_rows,
-                  vgg16_forward=vgg16_time,
+                  vgg16_forward=vgg16_time, conv_paths=conv_paths,
                   geometries=dict(main=main_geometries,
                                   stream=stream_geometries),
                   stream_runs=stream_runs, energy_runs=energy_runs,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the dense conv kernel at every channel block, on one card.
+"""Time the dense conv kernels at every channel block, on one card.
 
-    python3 scripts/conv_blocking_sweep.py
+    python3 scripts/conv_blocking_sweep.py [--ws]
 
 For each dense conv of the served main path (AlexNet and MobileNetV2 at
 224 px, batch 4 and its batch-1 microbatches, fp32 and bf16), plans the
@@ -15,7 +15,14 @@ lever.  Then scores the planner's rule -- the widest BN giving
 targets and budgets against the per-shape best.  Prints one row per
 shape and the score of each target and budget, and writes every time to
 ``chiprun_out/conv_blocking_sweep.json``: the data the planner's rule is
-set from.  Needs an NVIDIA card."""
+set from.
+
+With ``--ws``, the warp-specialised kernel instead: each of VGG16's bf16
+convs it takes, at batches 16, 4 and 1, planned at each BN of
+``WS_BNS`` whose tiles fill, timed the same way; then the planner's BN
+rule (the fewest waves at WS_IMAGES images, each weighed by
+WS_STAGE_COST) scored at several weights against the per-shape best
+(``chiprun_out/conv_ws_sweep.json``).  Needs an NVIDIA card."""
 from __future__ import annotations
 
 import json
@@ -25,6 +32,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TARGETS = (66, 132, 198, 264, 396, 528)
+# WS_STAGE_COST candidates: a stage's weight at BN 256, 128, 64
+WS_COSTS = ((2.0, 1.0, 1.0), (1.5, 1.0, 1.0), (1.25, 1.0, 1.0),
+            (2.0, 1.0, 0.75), (1.5, 1.0, 0.75), (1.0, 1.0, 1.0))
 BUDGETS = (113 * 1024, 75 * 1024, 56 * 1024)   # 2, 3, 4 CTAs an SM
 
 
@@ -34,6 +44,64 @@ def rule(ctas: dict, target: int) -> int:
         if ctas[bn] >= target:
             return bn
     return max(ctas, key=lambda bn: (ctas[bn], bn))
+
+
+def ws_rule(kconv, ctas: dict, costs) -> int:
+    """The planner's BN among {bn: CTAs at WS_IMAGES images} weighed by
+    ``costs`` (BN 256, 128, 64)."""
+    weight = dict(zip(kconv.WS_BNS, costs))
+    return min(ctas, key=lambda bn: (-(-ctas[bn] // kconv.SMS) * weight[bn],
+                                     -bn))
+
+
+def sweep_ws(torch, F, kconv, cnn, Timer, in_turns, conv_kwargs,
+             make_inputs, card) -> int:
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(17)
+    all_bns = kconv.WS_BNS
+    rows = []
+    for batch in (16, 4, 1):
+        for call in cnn.conv_launches(cnn.CNN_MODELS["vgg16"], batch=batch):
+            kw = conv_kwargs(call)
+            x, w, b = make_inputs(torch, call, torch.bfloat16, gen, dev)
+            timers, ctas = {}, {}
+            for bn in all_bns:
+                kconv.WS_BNS = (bn,)
+                kconv.plan_conv.cache_clear()
+                g = kconv.plan_conv(call["x_shape"], call["w_shape"],
+                                    dtype=torch.bfloat16, **kw)
+                if g.ws:
+                    ctas[bn] = g.ctas // batch * kconv.WS_IMAGES
+                    timers[bn] = Timer(
+                        torch, lambda g=g: kconv.launch(x, w, b, g))
+            kconv.WS_BNS = all_bns
+            kconv.plan_conv.cache_clear()
+            if not timers:
+                continue
+            t = in_turns(timers)
+            picked = kconv.plan_conv(call["x_shape"], call["w_shape"],
+                                     dtype=torch.bfloat16, **kw).bn
+            rows.append(dict(batch=batch, x=list(call["x_shape"]),
+                             w=list(call["w_shape"]), pool=call["pool_k"],
+                             picked=picked, ctas=ctas,
+                             us={bn: 1e3 * v for bn, v in t.items()}))
+            print(f"b{batch} x={call['x_shape']} w={call['w_shape']} "
+                  f"picked bn{picked}: " + ", ".join(
+                      f"bn{bn} {1e3 * v:.1f} us" for bn, v in t.items()))
+    scores = {}
+    for costs in WS_COSTS:
+        key = "/".join(map(str, costs))
+        scores[key] = {b: sum(r["us"][ws_rule(kconv, r["ctas"], costs)]
+                              for r in rows if r["batch"] == b)
+                       for b in (16, 4, 1)}
+    scores["best"] = {b: sum(min(r["us"].values()) for r in rows
+                             if r["batch"] == b) for b in (16, 4, 1)}
+    print(json.dumps(scores))
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "conv_ws_sweep.json"), "w") as f:
+        json.dump(dict(card=card, rows=rows, scores=scores), f, indent=1)
+    return 0
 
 
 def main() -> int:
@@ -58,6 +126,9 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
     _build.build_all()
+    if "--ws" in sys.argv[1:]:
+        return sweep_ws(torch, F, kconv, cnn, Timer, in_turns, conv_kwargs,
+                        make_inputs, card)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4)
     calls, seen = [], set()

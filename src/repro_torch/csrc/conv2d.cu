@@ -4,18 +4,25 @@
 //   * conv2d_dense_kernel     <- its dense/grouped branch (L464-477) and
 //                                the bias/activation/pool epilogue
 //                                (L478-497);
+//   * conv2d_dense_ws_kernel  <- the same, for the bf16 convs whose tiles
+//                                fill (VGG's 3x3 convs with Cin >= 64);
 //   * conv2d_depthwise_kernel <- its depthwise branch (L451-463).
 //
 // What bounds them on an H100.  The dense convs of AlexNet and
-// MobileNetV2 do 10-200 FLOPs per byte they must move.  In fp32 storage
-// the products run as three TF32 tensor-core passes (495 TFLOP/s each,
-// 165 effective), in bf16 as one bf16 pass (989 TFLOP/s): AlexNet's convs
-// are then bound by operations, MobileNetV2's pointwise convs by bytes
-// (3.35 TB/s), and the deep 7x7-14x14 layers by having too few output
-// tiles to fill 132 SMs.  The depthwise 3x3 stencil does ~2 FLOPs per
-// byte: it is bound by memory.  Measured, neither kernel is near its
-// bound: a dense stage is bound by the latency of its own staging,
-// barriers and gather, which one warpgroup runs in turn (PERF.md).
+// MobileNetV2 do 10-200 FLOPs per byte they must move, VGG's 3x3 convs
+// ~250-1000.  In fp32 storage the products run as three TF32 tensor-core
+// passes (495 TFLOP/s each, 165 effective), in bf16 as one bf16 pass
+// (989 TFLOP/s): VGG's and AlexNet's convs are then bound by operations,
+// MobileNetV2's pointwise convs by bytes (3.35 TB/s), and the deep
+// 7x7-14x14 layers by having too few output tiles to fill 132 SMs.  The
+// depthwise 3x3 stencil does ~2 FLOPs per byte: it is bound by memory.
+// Measured, the one-warpgroup dense kernel is far from its bound: a stage
+// is bound by the latency of its own staging, barriers and gather, which
+// one warpgroup runs in turn.  The warp-specialised kernel takes the
+// staging off the threads that multiply; what bounds it is shared memory
+// (each stage's weight slice is read by both consumers' wgmma and written
+// by TMA, and the im2col gather reads 2 bytes a lane) and, on the 28- and
+// 14-wide layers, the producers' cp.async (PERF.md).
 //
 // Dense design: an implicit GEMM on wgmma.  M = the BM=64 pixels of one
 // rectangular conv tile of one image (for a fused pool the tile covers
@@ -46,13 +53,35 @@
 // then the tile goes through shared memory (channel-major) for coalesced
 // stores, or for the maxpool over the tile's windows (overlapping windows
 // included).  Where rows, planes and weights are aligned, the planner
-// picks 16- or 8-byte copies (vec_x, vec_b); TMA is not used: the 13-,
-// 27-, 55-, 7- and 14-wide NCHW rows and the Cin=3 weight rows break its
-// 16-byte stride rule, and each launch would need its tensor maps
-// encoded on the host.  The launch geometry (tiles, K decomposition, ring
+// picks 16- or 8-byte copies (vec_x, vec_b); this kernel uses no TMA: the
+// 13-, 27-, 55-, 7- and 14-wide NCHW rows and the Cin=3 weight rows break
+// its 16-byte stride rule.  The launch geometry (tiles, K decomposition, ring
 // depth, slot layout, shared bytes, the divisors' magic numbers) is
 // computed in Python (repro_torch/kernels/conv2d.py::plan_conv), where
 // the CPU tests check it; this file computes none of it.
+//
+// Warp-specialised design (bf16 storage): one CTA of three warpgroups
+// computes a tile of WS_BM = 128 conv pixels (two consumers of 64 rows)
+// by BN = 64, 128 or 256 channels, K in the same stages of BK = 64 taps
+// through a ring of nstage slots, each slot the stage's weight slice and
+// its planes, handed over by full and empty mbarriers (no block-wide
+// barrier in the loop).  The producer warpgroup fills the ring ahead of
+// the consumers: thread 0 has TMA copy the weight slice (a (Cout, ktot)
+// tensor map, 128-byte swizzle, zero past Cout) and, where image rows are
+// whole 16-byte copies (W % 8 == 0), the stage's planes (an (N, Cin, H, W)
+// map's box; TMA zero-fills outside the image); else every producer copies
+// the planes with cp.async (4- or 8-byte copies, counted on the slot's
+// mbarrier).  Each consumer gathers its rows of the stage's im2col tile
+// from the planes into registers in wgmma's A-fragment layout, k-step by
+// k-step, each k-step's gather running under the previous k-step's
+// product (two stages' fragments, so a stage's gather also runs under
+// the previous stage), and issues m64nBNk16 bf16 wgmma with B by the
+// swizzled descriptor; wgmma_wait<1> keeps one stage's products in flight.
+// Each stage's tap offsets come from one of tperiod tables made once a
+// CTA (the taps repeat, shifted by whole channels, every lcm(BK, K*K)
+// taps).  The epilogue is the one-warpgroup kernel's over 128 pixels and
+// eight warps.  The tensor maps are encoded on the host at each launch
+// (cuTensorMapEncodeTiled from the driver the runtime loaded).
 //
 // Summation contract (dense).  Each output is its fp32 sum over the flat
 // tap index k, in k-steps of the wgmma depth (8 taps for tf32, 16 for
@@ -63,10 +92,12 @@
 // (one: there is no split-K) are functions of the weight shape and dtype
 // alone, never of batch, spatial tile, BN, ring depth or pool fusion; the
 // tensor cores sum an element the same way whatever its row or column in
-// the tile.  So a fused conv->act->pool equals the unfused conv+act
+// the tile, the wgmma's N, and whether A comes from registers or shared
+// memory.  So a fused conv->act->pool equals the unfused conv+act
 // followed by a maxpool bitwise, a batch-4 launch equals four batch-1
-// launches bitwise, and split and monolithic runs give bitwise equal
-// logits.
+// launches bitwise, split and monolithic runs give bitwise equal logits,
+// and the warp-specialised kernel's outputs equal the one-warpgroup
+// kernel's bitwise (both sum each output in the same k-steps).
 //
 // Depthwise design: a shared-memory stencil.  One CTA (256 threads) per
 // (spatial tile, block of cb channels, image) stages each channel's
@@ -80,6 +111,8 @@
 // the CUDA-core kernel it replaces, so its outputs are bitwise the same.
 #include <math.h>
 #include <string.h>
+
+#include <cuda.h>   // CUtensorMap; the encoder is found at run time
 
 #include "hopper.cuh"
 
@@ -96,6 +129,8 @@ enum Param {
   P_NSTAGE, P_CHMAX, P_PITCH, P_MAGIC, P_VEC_X, P_VEC_B, P_SLOT, P_OFF_B,
   P_OFF_BS, P_OFF_TAB, P_OFF_PX, P_OFF_TOFF, P_KQ, P_KR, P_CI_LAST, P_CB,
   P_KT, P_PITCH_W, P_OFF_W, P_OFF_CT, P_MAGIC_W, P_MAGIC_PC, P_MAGIC_NS,
+  P_WS, P_RP, P_EC, P_RC, P_MAGIC_RC, P_MAGIC_CR, P_OFF_PL, P_PSLOT,
+  P_OFF_BAR, P_TPERIOD,
   P_COUNT
 };
 
@@ -105,7 +140,8 @@ struct ConvArgs {
       conv_th, conv_tw, in_th, in_tw, tiles_h, tiles_w, co_blocks, smem, bn,
       ktot, bk, stages, nstage, chmax, pitch, magic, vec_x, vec_b, slot,
       off_b, off_bs, off_tab, off_px, off_toff, kq, kr, ci_last, cb, kt,
-      pitch_w, off_w, off_ct, magic_w, magic_pc, magic_ns;
+      pitch_w, off_w, off_ct, magic_w, magic_pc, magic_ns, ws, rp, ec, rc,
+      magic_rc, magic_cr, off_pl, pslot, off_bar, tperiod;
 };
 static_assert(sizeof(ConvArgs) == P_COUNT * sizeof(int),
               "ConvArgs must mirror enum Param");
@@ -574,6 +610,260 @@ conv2d_dense_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The warp-specialised dense kernel (bf16 storage).
+constexpr int WS_BM = 128;            // conv pixels a CTA: 64 a consumer
+constexpr int WS_THREADS = 384;       // a producer warpgroup, two consumers
+constexpr int WS_EPI_PITCH = 132;     // floats per epilogue row
+
+// Copy the input planes of one stage's channels (rows of rc copies of EC
+// elements from column iws, zero outside the image) into a slot, copies
+// i0, i0 + step, ...  EC-element copies never straddle the image's
+// edge: W % EC == 0.
+template <int EC>
+__device__ __forceinline__ void ws_planes(
+    __nv_bfloat16* xs, const ConvArgs& a, const __nv_bfloat16* xc, int nch,
+    int ih0, int iws, size_t hw, int i0, int step) {
+  const int per_ch = a.in_th * a.rc;
+  const int total = nch * per_ch;
+  const uint32_t mcr = static_cast<uint32_t>(a.magic_cr);
+  const uint32_t mrc = static_cast<uint32_t>(a.magic_rc);
+  for (int i = i0; i < total; i += step) {
+    const int cl = per_ch == 1 ? i : __umulhi(i, mcr);
+    const int e = i - cl * per_ch;
+    const int r = a.rc == 1 ? e : __umulhi(e, mrc);
+    const int q = e - r * a.rc;
+    const int ih = ih0 + r, iw = iws + q * EC;
+    const bool ok = ih >= 0 && ih < a.H && iw >= 0 && iw < a.W;
+    __nv_bfloat16* dst = xs + cl * a.pitch + r * a.rp + q * EC;
+    const __nv_bfloat16* src = xc + cl * hw + (ok ? ih * a.W + iw : 0);
+    if constexpr (EC == 8) cp_async16(dst, src, ok);
+    else if constexpr (EC == 4) cp_async8(dst, src, ok);
+    else cp_async4(dst, src, ok);
+  }
+}
+
+// One CTA: a WS_BM-pixel conv tile x BN output channels of image n.
+// Threads 0-127 produce: for every stage, once its ring slot is free,
+// thread 0 has TMA bring the weight slice (and, where image rows are
+// whole 16-byte copies, the stage's planes), else every producer copies
+// planes with cp.async.  Threads 128-383 consume: each gathers its two A
+// rows of the stage's im2col tile from the planes into registers (two
+// stages' fragments, so one stage's gather runs under the other's
+// products) and issues the stage's wgmma; then the epilogue.
+template <typename T, int BN>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+conv2d_dense_ws_kernel(const T* __restrict__ x,
+                       const float* __restrict__ bias, T* __restrict__ y,
+                       ConvArgs a, const __grid_constant__ CUtensorMap wmap,
+                       const __grid_constant__ CUtensorMap xmap) {
+  static_assert(sizeof(T) == 2, "bf16 storage only");
+  extern __shared__ __align__(1024) unsigned char ws_raw[];
+  // the 128-byte swizzle is laid out from 1024-byte aligned addresses
+  unsigned char* smem =
+      ws_raw + ((1024 - (smem_addr(ws_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  const int th_i = blockIdx.x / a.tiles_w, tw_i = blockIdx.x % a.tiles_w;
+  const int co0 = blockIdx.y * BN;
+  const int n = blockIdx.z;
+  const int ps = a.pool_k ? a.pool_s : 1;
+  const int oh0 = th_i * a.tile_oh, ow0 = tw_i * a.tile_ow;
+  const int ih0 = oh0 * ps * a.stride - a.pad;
+  const int iw0 = ow0 * ps * a.stride - a.pad;
+  const int iws = iw0 & -a.ec;        // the staged rows' first column
+  const int npix = a.conv_th * a.conv_tw;
+  const int ns = a.nstage;
+  // each ring slot: full (the TMA's bytes; the producers' cp.async),
+  // empty (every consumer)
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.off_bar);
+  uint64_t* empty = full + ns;
+  if (tid == 0) {
+    for (int i = 0; i < ns; ++i) {
+      mbar_init(full + i, a.ec == 8 ? 1 : 129);
+      mbar_init(empty + i, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the tap tables: stage s reads table s % tperiod (the stages' taps
+  // repeat, shifted by whole channels, every tperiod stages), entry j
+  // the offset of tap s * BK + j in the stage's planes
+  int* tabs = reinterpret_cast<int*>(smem + a.off_toff);
+  for (int k = tid; k < a.tperiod * BK; k += WS_THREADS) {
+    const int KK = a.K * a.K, r = k % KK;
+    tabs[k] = (k / KK - (k - k % BK) / KK) * a.pitch + (r / a.K) * a.rp
+              + r % a.K;
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer ----
+    if constexpr (BN == 256)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const size_t hw = (size_t)a.H * a.W;
+    const __nv_bfloat16* xn =
+        reinterpret_cast<const __nv_bfloat16*>(x) + (size_t)n * a.Cin * hw;
+    if (tid == 0) {
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(&wmap)) : "memory");
+      if (a.ec == 8)
+        asm volatile("prefetch.tensormap [%0];\n"
+                     :: "l"(reinterpret_cast<uint64_t>(&xmap)) : "memory");
+    }
+    // the weight slice: rows of the stage's 64 taps, 128 bytes, chunk c
+    // at c ^ (row % 8) (the map's 128-byte swizzle), zero past Cout; the
+    // planes' box: rp columns from iws, in_th rows from ih0, chmax
+    // channels from the stage's first, zero outside the image
+    const uint32_t bytes =
+        BN * BK * 2 + (a.ec == 8 ? a.chmax * a.in_th * a.rp * 2 : 0);
+    TapWalk walk;
+    walk.init(a, 0);
+    int slot = 0, use = 0;
+    for (int t = 0; t < a.stages; ++t) {
+      unsigned char* sl = smem + slot * a.slot;
+      if (use > 0) mbar_wait(empty + slot, (use - 1) & 1);
+      if (tid == 0) {
+        mbar_arrive_expect_tx(full + slot, bytes);
+        tma_load_2d(sl, &wmap, t * BK, co0, full + slot);
+        if (a.ec == 8)
+          tma_load_4d(sl + a.off_pl, &xmap, iws, ih0, walk.c_lo, n,
+                      full + slot);
+      }
+      if (a.ec != 8) {
+        const int nch = min(walk.c_hi, a.ci_last) + 1 - walk.c_lo;
+        __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(sl + a.off_pl);
+        const __nv_bfloat16* xc = xn + (size_t)walk.c_lo * hw;
+        if (a.ec == 4) ws_planes<4>(xs, a, xc, nch, ih0, iws, hw, tid, 128);
+        else ws_planes<2>(xs, a, xc, nch, ih0, iws, hw, tid, 128);
+        cp_async_mbar_arrive(full + slot);
+      }
+      walk.next(a);
+      if (++slot == ns) { slot = 0; ++use; }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // ---- consumers: consumer c multiplies A rows 64c..64c+63 ----
+  if constexpr (BN == 256)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int ct = tid - 128;
+  const int c = ct >> 7;
+  const int lane = tid & 31, t4 = lane & 3, wq = (ct >> 5) & 3;
+  // this thread's two A rows (wgmma's fragment: rows g and g + 8 of its
+  // warp's 16): their windows' offsets in a plane
+  int pix[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = c * 64 + wq * 16 + (lane >> 2) + 8 * h;
+    const int r = m < npix ? m / a.conv_tw : 0;
+    const int cc = m < npix ? m - r * a.conv_tw : 0;
+    pix[h] = m < npix ? r * a.stride * a.rp + cc * a.stride + (iw0 - iws)
+                      : 0;
+  }
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  uint32_t fa[2][BK / 16][4];         // two stages' A fragments
+  int slot = 0, use = 0, prev = 0, tq = 0;
+  // stage s: gather its A fragments into f from the slot's planes (taps
+  // 2t, 2t+1, 2t+8, 2t+9 of each k-step), then its products
+  auto stage = [&](uint32_t (&f)[BK / 16][4], int s) {
+    mbar_wait(full + slot, use & 1);
+    __syncwarp();
+    const unsigned char* sl = smem + slot * a.slot;
+    const unsigned short* xu =
+        reinterpret_cast<const unsigned short*>(sl + a.off_pl);
+    const int* tab = tabs + tq * BK;
+    const uint64_t db = sw128_desc(smem_addr(sl));
+    // each k-step's fragments, then its product: the next k-step's
+    // gather runs under it (and both consumers' gathers under the tensor
+    // cores' work)
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const int kb = j * 16 + 2 * t4;
+      const int2 o0 = *reinterpret_cast<const int2*>(tab + kb);
+      const int2 o1 = *reinterpret_cast<const int2*>(tab + kb + 8);
+      uint32_t u[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        u[h][0] = xu[pix[h] + o0.x];
+        u[h][1] = xu[pix[h] + o0.y];
+        u[h][2] = xu[pix[h] + o1.x];
+        u[h][3] = xu[pix[h] + o1.y];
+      }
+      f[j][0] = u[0][0] | (u[0][1] << 16);
+      f[j][1] = u[1][0] | (u[1][1] << 16);
+      f[j][2] = u[0][2] | (u[0][3] << 16);
+      f[j][3] = u[1][2] | (u[1][3] << 16);
+      wgmma_fence();
+      mma_rs_bf16<BN>(acc, f[j], db + 2 * j);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();                  // stage s-1's products are done,
+                                      // and its fragments free
+    if (s > 0) mbar_arrive(empty + prev);
+    prev = slot;
+    if (++slot == ns) { slot = 0; ++use; }
+    if (++tq == a.tperiod) tq = 0;
+  };
+  for (int s = 0; s < a.stages; s += 2) {
+    stage(fa[0], s);
+    if (s + 1 < a.stages) stage(fa[1], s + 1);
+  }
+  wgmma_wait<0>();
+  bar_sync(2, 256);                   // the epilogue tile overlays the ring
+
+  // epilogue: fp32 bias and activation into a channel-major fp32 tile
+  float* ot = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = j * 8 + 2 * t4 + q;
+      const int co = co0 + col;
+      const float b = (bias != nullptr && co < a.cout_pg) ? bias[co] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = c * 64 + wq * 16 + (lane >> 2) + 8 * h;
+        ot[col * WS_EPI_PITCH + m] =
+            activate(acc[4 * j + 2 * h + q] + b, a.act);
+      }
+    }
+  // each lane's (at most four) outputs of a channel: where they go, and
+  // for a pool where their window starts in the tile
+  const int plane = a.Po * a.Pw;
+  int dst[4], win[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int p = lane + 32 * q;
+    const int tw_o = a.pool_k ? a.tile_ow : a.conv_tw;
+    const int np = a.pool_k ? a.tile_oh * a.tile_ow : npix;
+    const int r = p / tw_o, cc = p - r * tw_o;
+    const int oh = oh0 + r, ow = ow0 + cc;
+    dst[q] = (p < np && oh < a.Po && ow < a.Pw) ? oh * a.Pw + ow : -1;
+    win[q] = a.pool_k ? (r * ps) * a.conv_tw + cc * ps : p;
+  }
+  bar_sync(2, 256);
+  T* yn = y + ((size_t)n * a.Cout + co0) * plane;
+  for (int col = ct >> 5; col < BN && co0 + col < a.cout_pg; col += 8) {
+    const float* t = ot + col * WS_EPI_PITCH;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (dst[q] < 0) continue;
+      float v;
+      if (!a.pool_k) {
+        v = t[win[q]];
+      } else {
+        v = -INFINITY;
+        for (int ph = 0; ph < a.pool_k; ++ph)
+          for (int pw = 0; pw < a.pool_k; ++pw)
+            v = fmaxf(v, t[win[q] + ph * a.conv_tw + pw]);
+      }
+      yn[(size_t)col * plane + dst[q]] = from_f<T>(v);
+    }
+  }
+}
+
 // One CTA: a conv tile of cb channels of image n.  KT, ST: the compiled
 // kernel size and stride (0: read from the arguments).
 template <typename T, int KT, int ST>
@@ -754,6 +1044,81 @@ cudaError_t launch_dense(const T* x, const T* w, const float* b, T* y,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from the driver the runtime loaded (nothing
+// links libcuda)
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <typename T, int BN>
+cudaError_t launch_ws(const T* x, const T* w, const float* b, T* y,
+                      const ConvArgs& a, cudaStream_t stream) {
+  static int cap = 48 * 1024;
+  cudaError_t err = raise_smem_cap(conv2d_dense_ws_kernel<T, BN>, a.smem,
+                                   cap);
+  if (err != cudaSuccess) return err;
+  // the weights as a (Cout, ktot) matrix of bf16, read in boxes of BN
+  // rows by one stage of taps, in the 128-byte swizzle wgmma reads
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap wmap;
+  const cuuint64_t dims[2] = {(cuuint64_t)a.ktot, (cuuint64_t)a.Cout};
+  const cuuint64_t strides[1] = {(cuuint64_t)a.ktot * sizeof(T)};
+  const cuuint32_t box[2] = {BK, BN};
+  const cuuint32_t step[2] = {1, 1};
+  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<T*>(w), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  // the input as an (N, Cin, H, W) tensor of bf16 read in boxes of a
+  // stage's planes, where its rows are whole 16-byte copies (else the
+  // producers copy the planes themselves and the map is not read)
+  CUtensorMap xmap;
+  memset(&xmap, 0, sizeof(xmap));
+  if (a.ec == 8) {
+    const cuuint64_t xdims[4] = {(cuuint64_t)a.W, (cuuint64_t)a.H,
+                                 (cuuint64_t)a.Cin, (cuuint64_t)a.N};
+    const cuuint64_t xstrides[3] = {
+        (cuuint64_t)a.W * sizeof(T), (cuuint64_t)a.H * a.W * sizeof(T),
+        (cuuint64_t)a.Cin * a.H * a.W * sizeof(T)};
+    const cuuint32_t xbox[4] = {(cuuint32_t)a.rp, (cuuint32_t)a.in_th,
+                                (cuuint32_t)a.chmax, 1};
+    const cuuint32_t xstep[4] = {1, 1, 1, 1};
+    if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+               const_cast<T*>(x), xdims, xstrides, xbox, xstep,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  dim3 grid(a.tiles_h * a.tiles_w, a.co_blocks, a.N);
+  conv2d_dense_ws_kernel<T, BN><<<grid, WS_THREADS, a.smem, stream>>>(
+      x, b, y, a, wmap, xmap);
+  return cudaGetLastError();
+}
+
 template <typename T, int KT, int ST>
 cudaError_t launch_dw(const T* x, const T* w, const float* b, T* y,
                       const ConvArgs& a, cudaStream_t stream) {
@@ -776,6 +1141,18 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
     if (a.kt == 3 && a.stride == 2)
       return launch_dw<T, 3, 2>(xt, wt, bt, yt, a, stream);
     return launch_dw<T, 0, 0>(xt, wt, bt, yt, a, stream);
+  }
+  if (a.ws) {
+    // the wrapper checked the copies' alignment
+    if constexpr (sizeof(T) == 2) {
+      switch (a.bn) {
+        case 256: return launch_ws<T, 256>(xt, wt, bt, yt, a, stream);
+        case 128: return launch_ws<T, 128>(xt, wt, bt, yt, a, stream);
+        case 64: return launch_ws<T, 64>(xt, wt, bt, yt, a, stream);
+        default: return cudaErrorInvalidValue;
+      }
+    }
+    return cudaErrorInvalidValue;
   }
   // the 16-byte copies need 16-byte aligned tensors (a batch slice of an
   // aligned tensor may not be)

@@ -5,10 +5,20 @@ and its launch geometry.
 input, OIHW weights, an fp32 bias, an optional activation and an
 optional VALID maxpool fused after it, fp32 accumulation, output in the
 storage dtype (fp32 or bf16).  On a CUDA tensor it launches
-``csrc/conv2d.cu``: the dense kernel for dense, grouped and pointwise
-convs, the depthwise kernel when ``groups == Cin == Cout``.  On a CPU
-tensor it runs ``ref.conv2d_plain``.  There is no fallback between the
-two: a CUDA tensor the kernel does not take raises.
+``csrc/conv2d.cu``: the warp-specialised dense kernel for the bf16 convs
+whose tiles fill (VGG's 3x3 convs with Cin >= 64), the one-warpgroup
+dense kernel for every other dense, grouped and pointwise conv, the
+depthwise kernel when ``groups == Cin == Cout``.  On a CPU tensor it runs
+``ref.conv2d_plain``.  There is no fallback between them: a CUDA tensor
+the kernels do not take raises.
+
+What bounds them on an H100 (``csrc/conv2d.cu``'s note, ``PERF.md``): the
+one-warpgroup kernel runs its staging, barriers, gather and products in
+turn, far from the tensor cores' rate; the warp-specialised one moves
+the staging to a producer warpgroup (TMA, or cp.async on the 28- and
+14-wide layers) and overlaps its consumers' gathers with their wgmma, and
+is bound by shared memory (the weight slice read by both consumers, the
+gather's 2-byte loads) and, on the narrow layers, the producers' copies.
 
 ``plan_conv`` is the launch geometry in plain Python, so the CPU tests
 can check that the tiles cover the output exactly and that every
@@ -18,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -51,6 +62,34 @@ RING_BUDGET = 75 * 1024           # three CTAs' worth of an SM's 228 KB
 GRID_YZ_MAX = 65535
 MAGIC_LIMIT = 1 << 16             # __umulhi division is exact below this
 
+# Warp-specialised dense kernel (conv2d_dense_ws_kernel), bf16 storage: a
+# producer warpgroup brings each stage's weight slice (TMA, 128-byte
+# swizzle) and input planes (TMA where image rows are whole 16-byte
+# copies, else cp.async) into a ring of ``nstage`` slots; two consumer
+# warpgroups gather their rows of the stage's im2col tile (WS_BM pixels
+# x BK taps) from the planes into registers and run wgmma m64nBNk16.
+# The planner takes it where the weights' rows are whole stages (no
+# padding taps), the image rows split into whole 4-byte copies or wider
+# (a stage's planes one TMA box, else at most WS_COPIES cp.async copies a
+# producer thread: MobileNetV2's 1x1 convs, 64 channels a stage, are not
+# taken), and the tiles fill at least WS_MIN_FILL of the products they
+# run (AlexNet's 13-wide convs are not taken); BN is
+# the one of WS_BNS whose waves of blocks at WS_IMAGES images cost least
+# (WS_STAGE_COST: a stage's relative time at each BN, from
+# scripts/conv_blocking_sweep.py on an H100); the ring is the deepest of
+# WS_NSTAGES that fits.  Nothing of it reads the batch.
+WS_BM = 128
+WS_THREADS = 384
+WS_BNS = (256, 128, 64)
+WS_STAGE_COST = {256: 1.5, 128: 1.0, 64: 1.0}
+WS_NSTAGES = (6, 5, 4, 3)
+WS_COPIES = 8                     # cp.async plane copies a producer a stage
+WS_BOX = 256                      # a TMA box's largest side
+WS_EPI_PITCH = 132
+WS_MIN_FILL = 0.75
+WS_IMAGES = 16
+SMS = 132                         # the H100's SMs: a wave of one-CTA blocks
+
 # Depthwise kernel (conv2d_depthwise_kernel): a shared-memory stencil.
 # One CTA per (spatial tile, block of DW channels, image); each thread
 # computes strips of DW_VEC outputs along a row.  K=3 at stride 1 or 2 is
@@ -76,7 +115,9 @@ _PARAM_FIELDS = (
     "tiles_h", "tiles_w", "co_blocks", "smem", "bn", "ktot", "bk", "stages",
     "nstage", "chmax", "pitch", "magic", "vec_x", "vec_b", "slot", "off_b",
     "off_bs", "off_tab", "off_px", "off_toff", "kq", "kr", "ci_last", "cb",
-    "kt", "pitch_w", "off_w", "off_ct", "magic_w", "magic_pc", "magic_ns")
+    "kt", "pitch_w", "off_w", "off_ct", "magic_w", "magic_pc", "magic_ns",
+    "ws", "rp", "ec", "rc", "magic_rc", "magic_cr", "off_pl", "pslot",
+    "off_bar", "tperiod")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +133,11 @@ class ConvGeometry:
     channels in ``chmax`` planes of ``pitch`` elements; byte offsets
     inside a slot.  Depthwise launches:
     ``cb`` channels a CTA, ``kt`` the compiled K (0: generic), rows of
-    ``pitch_w`` floats."""
+    ``pitch_w`` floats.  Warp-specialised launches (``ws``): a stage's
+    planes in rows of ``rp`` elements (``rc`` copies of ``ec``) in the
+    ring's slots of ``slot`` bytes (the weights, then ``pslot`` bytes of
+    planes from ``off_pl``), the mbarriers at ``off_bar``, then the
+    ``tperiod`` tap tables at ``off_toff``."""
 
     N: int
     Cin: int
@@ -151,6 +196,16 @@ class ConvGeometry:
     magic_w: int = 0
     magic_pc: int = 0
     magic_ns: int = 0
+    ws: int = 0
+    rp: int = 0
+    ec: int = 0
+    rc: int = 0
+    magic_rc: int = 0
+    magic_cr: int = 0
+    off_pl: int = 0
+    pslot: int = 0
+    off_bar: int = 0
+    tperiod: int = 0
 
     @property
     def grid(self) -> tuple[int, int, int]:
@@ -166,7 +221,16 @@ class ConvGeometry:
 
     @property
     def threads(self) -> int:
+        if self.ws:
+            return WS_THREADS
         return DW_THREADS if self.depthwise else THREADS
+
+    @property
+    def kernel(self) -> str:
+        """The launch counter's name of the kernel this plan runs."""
+        if self.ws:
+            return "conv2d_dense_ws"
+        return "conv2d_depthwise" if self.depthwise else "conv2d_dense"
 
     @property
     def in_plane(self) -> int:
@@ -282,7 +346,35 @@ def plan_conv(x_shape, w_shape, *, stride: int = 1, pad: int = 0,
               dtype: torch.dtype = torch.float32) -> ConvGeometry:
     """The launch geometry of one fused conv; raises on a conv the
     kernels do not take.  Cached: a serving loop plans each of its few
-    shapes once (the geometry is a frozen dataclass of ints)."""
+    shapes once (the geometry is a frozen dataclass of ints).  A dense
+    conv takes the warp-specialised kernel where ``_ws_geometry`` plans
+    one, else the one-warpgroup kernel."""
+    common = _common(x_shape, w_shape, stride, pad, groups, activation,
+                     pool_k, pool_s, dtype)
+    if not common["depthwise"]:
+        g = _ws_geometry(common)
+        if g is not None:
+            return g
+    return _plan(common)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_conv_dense(x_shape, w_shape, *, stride: int = 1, pad: int = 0,
+                    groups: int = 1, activation: str | None = None,
+                    pool_k: int = 0, pool_s: int = 0,
+                    dtype: torch.dtype = torch.float32) -> ConvGeometry:
+    """``plan_conv`` without the warp-specialised kernel: the
+    one-warpgroup kernel's geometry at every dense conv, which
+    ``chip_smoke.py`` holds the warp-specialised kernel to, bitwise, and
+    times it against."""
+    return _plan(_common(x_shape, w_shape, stride, pad, groups, activation,
+                         pool_k, pool_s, dtype))
+
+
+def _common(x_shape, w_shape, stride, pad, groups, activation, pool_k,
+            pool_s, dtype) -> dict:
+    """The conv's shapes and options as the kernels read them; raises on
+    a conv they do not take."""
     N, Cin, H, W = (int(d) for d in x_shape)
     Cout, cin_pg, K, K2 = (int(d) for d in w_shape)
     if K != K2:
@@ -306,12 +398,18 @@ def plan_conv(x_shape, w_shape, *, stride: int = 1, pad: int = 0,
     if N > GRID_YZ_MAX:
         raise ValueError(f"batch {N} exceeds the grid limit {GRID_YZ_MAX}")
     depthwise = groups > 1 and groups == Cin == Cout
-    common = dict(N=N, Cin=Cin, H=H, W=W, Cout=Cout, cin_pg=cin_pg,
-                  cout_pg=Cout // groups, K=K, stride=stride, pad=pad,
-                  act=_ACT_CODE[activation], pool_k=pool_k, pool_s=pool_s,
-                  Ho=Ho, Wo=Wo, Po=Po, Pw=Pw, groups=groups,
-                  dtype=_build.DTYPE_CODE[dtype])
-    if depthwise:
+    return dict(N=N, Cin=Cin, H=H, W=W, Cout=Cout, cin_pg=cin_pg,
+                cout_pg=Cout // groups, K=K, stride=stride, pad=pad,
+                act=_ACT_CODE[activation], pool_k=pool_k, pool_s=pool_s,
+                Ho=Ho, Wo=Wo, Po=Po, Pw=Pw, groups=groups,
+                dtype=_build.DTYPE_CODE[dtype], depthwise=int(depthwise))
+
+
+def _plan(common: dict) -> ConvGeometry:
+    """The depthwise or the one-warpgroup dense kernel's geometry."""
+    K, pool_k, pool_s = common["K"], common["pool_k"], common["pool_s"]
+    H, W = common["H"], common["W"]
+    if common["depthwise"]:
         if K > DW_MAX_K:
             raise ValueError(f"depthwise kernel takes K <= {DW_MAX_K}, "
                              f"got {K}")
@@ -393,13 +491,122 @@ def _dense_geometry(common: dict, bn: int) -> ConvGeometry | None:
         conv_tw=conv_tw, in_th=in_th, in_tw=in_tw,
         tiles_h=-(-common["Po"] // tile_oh),
         tiles_w=-(-common["Pw"] // tile_ow), co_blocks=co_blocks, smem=smem,
-        depthwise=0, bn=bn, ktot=kd.ktot, bk=BK, stages=kd.stages,
+        bn=bn, ktot=kd.ktot, bk=BK, stages=kd.stages,
         nstage=nstage, chmax=chmax,
         pitch=pitch, magic=magic_div(in_plane), vec_x=vec_x, vec_b=vec_b,
         slot=slot, off_b=x_bytes, off_bs=x_bytes + b_bytes,
         off_tab=x_bytes + b_bytes + bs_bytes, off_px=off_px,
         off_toff=off_px + _align(in_plane * 4, 16), kq=BK // (K * K),
         kr=BK % (K * K), ci_last=(kd.ktot - 1) // (K * K))
+
+
+def ws_fill(common: dict, tile) -> float:
+    """The share of a conv tile's WS_BM product rows that feed an output
+    of the whole launch: the output's share of its tiles' outputs, times
+    the tile's conv pixels over WS_BM."""
+    tile_oh, tile_ow, conv_th, conv_tw = tile
+    Po, Pw = common["Po"], common["Pw"]
+    tiles = -(-Po // tile_oh) * -(-Pw // tile_ow)
+    return Po * Pw / (tiles * tile_oh * tile_ow) * conv_th * conv_tw / WS_BM
+
+
+def _ws_tile(common: dict):
+    """(fill, tile) of the fullest conv tile of at most WS_BM pixels, the
+    widest among equals; None when no pool window fits."""
+    best = None
+    for max_w in range(1, min(common["Wo"], WS_BM) + 1):
+        tile = _conv_tile(common, WS_BM, max_w, WS_BM)
+        if tile is None:
+            continue
+        key = (ws_fill(common, tile), tile[3])
+        if best is None or key > best[0]:
+            best = (key, tile)
+    return None if best is None else (best[0][0], best[1])
+
+
+def ws_bn(common: dict, tiles: int, fill_m: float) -> int | None:
+    """The warp-specialised kernel's channel block: of the BNs of WS_BNS
+    whose tiles fill at least WS_MIN_FILL, the one whose waves of
+    one-CTA blocks at WS_IMAGES images cost least (WS_STAGE_COST a
+    wave), the widest among equals; None when none fills."""
+    cout = common["cout_pg"]
+    best = None
+    for bn in WS_BNS:
+        blocks = -(-cout // bn)
+        if fill_m * cout / (blocks * bn) < WS_MIN_FILL:
+            continue
+        waves = -(-tiles * blocks * WS_IMAGES // SMS)
+        cost = waves * WS_STAGE_COST[bn]
+        if best is None or cost < best[0]:
+            best = (cost, bn)
+    return None if best is None else best[1]
+
+
+def _ws_geometry(common: dict) -> ConvGeometry | None:
+    """The warp-specialised kernel's geometry, or None where it does not
+    take the conv: bf16 storage, one group, weight rows of whole stages,
+    image rows of whole copies of at least 4 bytes, tiles that fill."""
+    K, stride, H, W = common["K"], common["stride"], common["H"], common["W"]
+    if common["dtype"] != 1 or common["groups"] != 1:
+        return None
+    kd = k_decomposition(common["cin_pg"], K, 1)
+    if kd.ktot % BK:
+        return None
+    ec = next((e for e in (8, 4, 2) if W % e == 0), 0)
+    found = _ws_tile(common)
+    if not ec or found is None:
+        return None
+    fill_m, (tile_oh, tile_ow, conv_th, conv_tw) = found
+    tiles_h = -(-common["Po"] // tile_oh)
+    tiles_w = -(-common["Pw"] // tile_ow)
+    bn = ws_bn(common, tiles_h * tiles_w, fill_m)
+    if bn is None:
+        return None
+    in_th = (conv_th - 1) * stride + K
+    in_tw = (conv_tw - 1) * stride + K
+    # a staged row starts at a whole copy at most ec - 1 columns left of
+    # the tile's window
+    rc = -(-(in_tw + ec - 1) // ec)
+    rp = rc * ec
+    pitch = _align(in_th * rp, 8)
+    chmax = max(c1 - c0 for c0, c1 in map(kd.stage_channels,
+                                            range(kd.stages)))
+    # whole 16-byte copies: one TMA box a stage; else each producer's
+    # cp.async copies
+    if ec == 8 and max(rp, in_th, chmax) > WS_BOX:
+        return None
+    if ec < 8 and -(-chmax * in_th * rc // 128) > WS_COPIES:
+        return None
+    # a ring slot: the weight slice (whole 1024-byte swizzle atoms), then
+    # the stage's planes
+    off_pl = bn * BK * 2
+    pslot = _align(chmax * pitch * 2, 128)
+    slot = _align(off_pl + pslot, 1024)
+    epi = bn * WS_EPI_PITCH * 4
+    # the stages' tap offsets repeat, shifted by whole channels, every
+    # tperiod stages: lcm(BK, K * K) taps
+    tperiod = K * K // math.gcd(BK, K * K)
+
+    def layout(n):
+        off_bar = _align(max(n * slot, epi), 8)
+        off_toff = off_bar + 16 * n
+        # 1024 bytes to align the ring's swizzle in the kernel
+        return off_bar, off_toff, off_toff + 4 * tperiod * BK + 1024
+    fits = [n for n in WS_NSTAGES if layout(n)[2] <= SMEM_MAX]
+    if not fits:
+        return None
+    nstage = fits[0]
+    off_bar, off_toff, smem = layout(nstage)
+    return ConvGeometry(
+        **common, tile_oh=tile_oh, tile_ow=tile_ow, conv_th=conv_th,
+        conv_tw=conv_tw, in_th=in_th, in_tw=in_tw, tiles_h=tiles_h,
+        tiles_w=tiles_w, co_blocks=-(-common["cout_pg"] // bn), smem=smem,
+        bn=bn, ktot=kd.ktot, bk=BK, stages=kd.stages, nstage=nstage,
+        chmax=chmax, pitch=pitch, slot=slot,
+        kq=BK // (K * K), kr=BK % (K * K), ci_last=(kd.ktot - 1) // (K * K),
+        ws=1, rp=rp, ec=ec, rc=rc, magic_rc=magic_div(rc),
+        magic_cr=magic_div(in_th * rc), off_pl=off_pl, pslot=pslot,
+        off_bar=off_bar, off_toff=off_toff, tperiod=tperiod)
 
 
 def _depthwise_geometry(common: dict) -> ConvGeometry | None:
@@ -434,7 +641,7 @@ def _depthwise_geometry(common: dict) -> ConvGeometry | None:
         conv_tw=conv_tw, in_th=in_th, in_tw=in_tw,
         tiles_h=-(-common["Po"] // tile_oh),
         tiles_w=-(-common["Pw"] // tile_ow), co_blocks=-(-C // cb),
-        smem=smem, depthwise=1, cb=cb, kt=kt, pitch_w=pitch_w, off_w=off_w,
+        smem=smem, cb=cb, kt=kt, pitch_w=pitch_w, off_w=off_w,
         off_ct=off_ct, magic=magic_div(in_th * in_tw),
         magic_w=magic_div(in_tw), magic_pc=magic_div(conv_th * nstrip),
         magic_ns=magic_div(nstrip))
@@ -481,6 +688,18 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                             pool_k=geom.pool_k, pool_s=geom.pool_s)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d: no kernel for device {x.device}")
+    return launch(x, w, bias, geom)
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
+           geom: ConvGeometry) -> torch.Tensor:
+    """Run ``geom`` (``plan_conv``'s or ``plan_conv_dense``'s plan of
+    these shapes) on CUDA tensors that ``conv2d`` checked."""
+    if geom.ws:
+        # the warp-specialised kernel copies 16-byte weight runs and rows
+        # in copies of ec elements, with no narrower path
+        _build.check_aligned("conv2d", {"w": w}, 16)
+        _build.check_aligned("conv2d", {"x": x}, 2 * geom.ec)
     y = torch.empty((geom.N, geom.Cout, geom.Po, geom.Pw), dtype=x.dtype,
                     device=x.device)
     lib = _build.library("conv2d", _SIGNATURES)
@@ -490,5 +709,5 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
             None if bias is None else _build.ptr(bias), _build.ptr(y),
             geom.c_params, _build.stream_of(x))
     _build.check(lib, rc, "conv2d")
-    launches.add("conv2d_depthwise" if geom.depthwise else "conv2d_dense")
+    launches.add(geom.kernel)
     return y

@@ -6,8 +6,9 @@ counts.  A caller resets the counts, runs a path, and reads them back to
 show that the path went through the kernels."""
 from __future__ import annotations
 
-KERNELS = ("conv2d_dense", "conv2d_depthwise", "quantize", "dequantize",
-           "flash_attention", "rwkv6_wkv", "mamba2_ssd")
+KERNELS = ("conv2d_dense", "conv2d_dense_ws", "conv2d_depthwise",
+           "quantize", "dequantize", "flash_attention", "rwkv6_wkv",
+           "mamba2_ssd")
 
 COUNTS: dict[str, int] = {name: 0 for name in KERNELS}
 

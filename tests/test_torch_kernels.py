@@ -17,6 +17,7 @@
   (im2col by the kernel's own index formulas, k-steps and segments in
   order) and of the depthwise kernel's strips reproduce the conv.
 * The wrappers raise on what the kernels do not take."""
+import dataclasses
 import math
 
 import numpy as np
@@ -557,8 +558,69 @@ def _check_depthwise(g):
     assert g.cb * per_ch < kconv.MAGIC_LIMIT
 
 
+def _check_ws(g):
+    """The warp-specialised kernel's geometry: its tiles, K decomposition,
+    staged rows, plane and ring slots, barriers and epilogue overlay."""
+    _check_tiles(g)
+    assert g.ws == 1 and g.dtype == 1 and g.groups == 1 and not g.depthwise
+    assert g.conv_th * g.conv_tw <= kconv.WS_BM <= kconv.WS_EPI_PITCH
+    assert g.bn in kconv.WS_BNS and g.co_blocks * g.bn >= g.cout_pg
+    kd = kconv.k_decomposition(g.cin_pg, g.K, g.dtype)
+    assert (g.ktot, g.bk, g.stages) == (kd.ktot, kd.bk, kd.stages)
+    assert kd.kpad == kd.ktot == kd.stages * kd.bk     # no padding taps
+    assert max(c1 - c0 for c0, c1 in map(kd.stage_channels,
+                                         range(kd.stages))) == g.chmax
+    kk = g.K * g.K
+    assert (g.kq, g.kr, g.ci_last) == (g.bk // kk, g.bk % kk,
+                                       (g.ktot - 1) // kk)
+    # staged rows: rc copies of ec elements from the copy at or left of
+    # the window's first column, none straddling the image's edge
+    assert g.ec in (2, 4, 8) and g.W % g.ec == 0
+    assert g.rp == g.rc * g.ec and g.rp >= g.in_tw + g.ec - 1
+    assert g.pitch >= g.in_th * g.rp and g.pitch % 8 == 0
+    # every gathered element inside the planes: the farthest window (with
+    # the widest shift) plus the farthest tap of the last plane
+    far_pix = (g.conv_th - 1) * g.stride * g.rp \
+        + (g.conv_tw - 1) * g.stride + g.ec - 1
+    far_tap = (g.chmax - 1) * g.pitch + (g.K - 1) * g.rp + g.K - 1
+    assert far_pix + far_tap < g.chmax * g.pitch
+    # a stage's planes: one TMA box (whole 16-byte copies, landed
+    # densely), else WS_COPIES cp.async copies a producer thread
+    if g.ec == 8:
+        assert g.pitch == g.in_th * g.rp
+        assert max(g.rp, g.in_th, g.chmax) <= kconv.WS_BOX
+    else:
+        assert -(-g.chmax * g.in_th * g.rc // 128) <= kconv.WS_COPIES
+    assert (g.magic_rc, g.magic_cr) == (kconv.magic_div(g.rc),
+                                        kconv.magic_div(g.in_th * g.rc))
+    # ring slots: the weight slice (whole 1024-byte swizzle atoms), then
+    # the stage's planes; barriers past the epilogue tile, which overlays
+    # the ring; the tap tables
+    assert g.off_pl == g.bn * g.bk * 2 and g.off_pl % 1024 == 0
+    assert g.pslot >= 2 * g.chmax * g.pitch and g.pslot % 128 == 0
+    assert g.slot >= g.off_pl + g.pslot and g.slot % 1024 == 0
+    assert g.nstage in kconv.WS_NSTAGES
+    assert g.off_bar >= g.nstage * g.slot
+    assert g.off_bar >= 4 * g.bn * kconv.WS_EPI_PITCH and g.off_bar % 8 == 0
+    assert g.tperiod * g.bk == math.lcm(g.bk, kk)
+    assert g.off_toff == g.off_bar + 16 * g.nstage
+    assert g.smem == g.off_toff + 4 * g.tperiod * g.bk + 1024 \
+        <= kconv.SMEM_MAX
+    if g.nstage < max(kconv.WS_NSTAGES):       # the deepest ring that fits
+        deeper = g.nstage + 1
+        assert max(deeper * g.slot, 4 * g.bn * kconv.WS_EPI_PITCH) \
+            + 16 * deeper + 4 * g.tperiod * g.bk + 1024 > kconv.SMEM_MAX
+    tile = (g.tile_oh, g.tile_ow, g.conv_th, g.conv_tw)
+    fill_n = g.cout_pg / (g.co_blocks * g.bn)
+    assert kconv.ws_fill(dataclasses.asdict(g), tile) * fill_n \
+        >= kconv.WS_MIN_FILL
+
+
 def _check_geometry(g):
-    (_check_depthwise if g.depthwise else _check_dense)(g)
+    if g.ws:
+        _check_ws(g)
+    else:
+        (_check_depthwise if g.depthwise else _check_dense)(g)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -835,6 +897,221 @@ def test_walked_plans_cover_the_16_byte_paths_and_several_stages():
     assert not plans["k11s4_pool32"].vec_b     # 363-tap rows: 4-byte copies
     assert plans["k3_deep_bn16"].stages > 1
     assert plans["k11s4_pool32"].stages > 1
+
+
+def _swizzled(rows, width=128):
+    """Physical 16-byte chunk of each logical chunk (row m, chunk j) of a
+    tile of ``rows`` 128-byte rows from a 1024-byte aligned base, as the
+    hardware's 128-byte swizzle reads it: address bits 4-6 XOR bits 7-9."""
+    m = torch.arange(rows)[:, None]
+    addr = m * width + torch.arange(width // 16)[None] * 16
+    return ((addr ^ (((addr >> 7) & 7) << 4)) >> 4) & 7
+
+
+def _walk_ws(x, w, bias, g, activation):
+    """Walk the warp-specialised kernel's CTAs with torch ops, by its own
+    index formulas: each stage's planes (ec-element copies from the staged
+    first column, the magic divisions, zero outside the image), its tap
+    table, the im2col tile gathered through them, the weight slice stored
+    chunk by chunk at the 128-byte swizzle's chunk and read back where the
+    wgmma descriptor reads (``_swizzled``), the k-steps in order, then
+    bias, activation, pool and the stores of each lane's outputs.  Every
+    output element must be written exactly once and every read stay in
+    the slot."""
+    kd = kconv.k_decomposition(g.cin_pg, g.K, g.dtype)
+    ps = g.pool_s if g.pool_k else 1
+    npix = g.conv_th * g.conv_tw
+    BM, BK, kk = kconv.WS_BM, g.bk, g.K * g.K
+    out = torch.full((g.N, g.Cout, g.Po, g.Pw), float("nan"))
+    m = torch.arange(BM)
+    r, c = m // g.conv_tw, m % g.conv_tw
+    wflat = w.reshape(g.Cout, -1)
+    per_ch = g.in_th * g.rc
+    for n in range(g.N):
+        for th in range(g.tiles_h):
+            for tw in range(g.tiles_w):
+                oh0, ow0 = th * g.tile_oh, tw * g.tile_ow
+                ih0 = oh0 * ps * g.stride - g.pad
+                iw0 = ow0 * ps * g.stride - g.pad
+                iws = iw0 & -g.ec
+                assert 0 <= iw0 - iws < g.ec
+                pix = torch.where(m < npix, r * g.stride * g.rp
+                                  + c * g.stride + (iw0 - iws), 0)
+                for cb in range(g.co_blocks):
+                    co0 = cb * g.bn
+                    acc = torch.zeros(BM, g.bn)
+                    walk = _tap_walk(g)
+                    for s in range(kd.stages):
+                        c_lo, c_hi, taps = next(walk)
+                        nch = c_hi - c_lo
+                        assert nch <= g.chmax
+                        plane = torch.zeros(g.chmax * g.pitch)
+                        i = torch.arange(nch * per_ch)
+                        cl = torch.tensor([umulhi_div(int(v), per_ch)
+                                           for v in i], dtype=torch.long)
+                        e = i - cl * per_ch
+                        rr = torch.tensor([umulhi_div(int(v), g.rc)
+                                           for v in e], dtype=torch.long)
+                        q = e - rr * g.rc
+                        ih, iw = ih0 + rr, iws + q * g.ec
+                        ok = (ih >= 0) & (ih < g.H) & (iw >= 0) & (iw < g.W)
+                        lanes = torch.arange(g.ec)
+                        dst = (cl * g.pitch + rr * g.rp + q * g.ec)[:, None] \
+                            + lanes
+                        src = x[n, c_lo + cl[:, None], ih.clamp(0, g.H - 1)
+                                [:, None], (iw.clamp(0, g.W - g.ec)[:, None]
+                                            + lanes)]
+                        assert dst.unique().numel() == dst.numel()
+                        plane[dst.reshape(-1)] = torch.where(
+                            ok[:, None], src, 0.0).reshape(-1)
+                        # table s % tperiod: its taps' channels less its
+                        # first tap's channel (the stage's planes' first)
+                        k = (s % g.tperiod) * BK + torch.arange(BK)
+                        tab = (k // kk - (k - k % BK) // kk) * g.pitch \
+                            + (k % kk // g.K) * g.rp + k % kk % g.K
+                        assert [(c_lo + int(t) // g.pitch) for t in tab] \
+                            == [cc for cc, _ in taps]
+                        idx = pix[:, None] + tab[None]
+                        assert int(idx.max()) < g.chmax * g.pitch
+                        a = plane[idx]                       # (m, tap)
+                        k0 = s * BK
+                        nrow = torch.arange(g.bn)
+                        okr = co0 + nrow < g.cout_pg
+                        bw = torch.where(okr[:, None], wflat[
+                            (co0 + nrow).clamp(max=g.Cout - 1),
+                            k0:k0 + BK], 0.0).reshape(g.bn, 8, 8)
+                        mem = torch.zeros(g.bn, 8, 8)
+                        mem[nrow[:, None], torch.arange(8)[None]
+                            ^ (nrow[:, None] & 7)] = bw
+                        b = mem[nrow[:, None], _swizzled(g.bn)].reshape(
+                            g.bn, BK)
+                        for j in range(BK // kd.kstep):
+                            kl = slice(j * kd.kstep, (j + 1) * kd.kstep)
+                            acc = acc + a[:, kl] @ b[:, kl].T
+                    col = torch.arange(g.bn)
+                    bcol = torch.where(co0 + col < g.cout_pg,
+                                       bias[(co0 + col).clamp(
+                                           max=g.Cout - 1)], 0.0)
+                    ot = activate(acc + bcol[None], activation).T  # (col, m)
+                    tw_o = g.tile_ow if g.pool_k else g.conv_tw
+                    np_ = g.tile_oh * g.tile_ow if g.pool_k else npix
+                    for p in range(BM):
+                        pr, pc = p // tw_o, p % tw_o
+                        oh, ow = oh0 + pr, ow0 + pc
+                        if not (p < np_ and oh < g.Po and ow < g.Pw):
+                            continue
+                        if g.pool_k:
+                            win = pr * ps * g.conv_tw + pc * ps
+                            rows = [win + ph * g.conv_tw + pw
+                                    for ph in range(g.pool_k)
+                                    for pw in range(g.pool_k)]
+                            assert max(rows) < npix
+                            v = ot[:, rows].amax(dim=1)
+                        else:
+                            v = ot[:, p]
+                        nco = min(g.bn, g.cout_pg - co0)
+                        dst_o = out[n, co0:co0 + nco, oh, ow]
+                        assert torch.isnan(dst_o).all(), "tiles overlap"
+                        out[n, co0:co0 + nco, oh, ow] = v[:nco]
+    assert not torch.isnan(out).any(), "tiles leave a gap"
+    return out
+
+
+# (N, Cin, H, W, Cout, K, stride, pad, groups, act, pool_k, pool_s): small
+# convs the planner gives the warp-specialised kernel, over its three copy
+# widths, BNs, fused pools, a partial channel block and a 5x5 conv
+WS_EMULATED = {
+    "k3_pool22_ec4": (1, 64, 12, 20, 64, 3, 1, 1, 1, "relu", 2, 2),
+    "k3_rows_ec8": (2, 64, 9, 24, 128, 3, 1, 1, 1, "relu6", 0, 0),
+    "k3_w14_ec2": (1, 64, 14, 14, 256, 3, 1, 1, 1, None, 0, 0),
+    "k3_pool22_w14": (1, 64, 14, 14, 128, 3, 1, 1, 1, "relu", 2, 2),
+    "k3_cout96": (1, 64, 16, 16, 96, 3, 1, 1, 1, "relu", 0, 0),
+    "k5_pool22": (1, 64, 16, 16, 64, 5, 1, 2, 1, "relu", 2, 2),
+    "k3_bn256": (1, 64, 28, 28, 512, 3, 1, 1, 1, "relu", 0, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WS_EMULATED))
+def test_ws_tile_walk_reproduces_the_conv(name):
+    case = WS_EMULATED[name]
+    _, _, _, _, _, _, s, p, groups, act, pk, ps = case
+    x, w, b = (torch.from_numpy(a) for a in _conv_inputs(case, seed=3))
+    g = _plan(case, dtype=torch.bfloat16)
+    assert g.ws, f"{name}: the planner no longer takes it"
+    _check_geometry(g)
+    got = _walk_ws(x, w, b, g, act)
+    want = conv2d_plain(x, w, stride=s, pad=p, bias=b, activation=act,
+                        groups=groups, pool_k=pk, pool_s=ps)
+    _assert_close(got.numpy(), want.numpy(), FP32_TOL)
+
+
+def test_ws_walked_plans_cover_the_copy_widths_and_blocks():
+    plans = {n: _plan(WS_EMULATED[n], dtype=torch.bfloat16)
+             for n in WS_EMULATED}
+    assert {g.ec for g in plans.values()} == {2, 4, 8}
+    assert {g.bn for g in plans.values()} == set(kconv.WS_BNS)
+    assert any(g.pool_k for g in plans.values())
+    assert any(g.co_blocks * g.bn > g.cout_pg for g in plans.values())
+    assert any(g.K == 5 for g in plans.values())
+    assert all(g.tiles_h * g.tiles_w * g.co_blocks > 1 or g.N > 1
+               for g in plans.values())
+
+
+# The served CNNs' convs at bf16: how many take the warp-specialised
+# kernel (none at fp32).  MobileNetV2's 1x1 convs stage 64 channels a
+# stage, more than the producer holds
+WS_ROUTES = {"vgg16": 12, "vgg13": 9, "vgg11": 7, "alexnet": 0,
+             "mobilenetv2": 0}
+
+
+def _served_calls(name, batch):
+    return tcnn.conv_launches(tcnn.CNN_MODELS[name], batch=batch)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(WS_ROUTES))
+def test_ws_routing_of_the_served_convs(name, dtype):
+    """bf16 VGG convs with Cin >= 64 take the warp-specialised kernel, the
+    stems (Cin = 3), AlexNet and MobileNetV2 the one-warpgroup one (or
+    the depthwise); no fp32 conv; and the choice is the same at batch 1,
+    4 and 16."""
+    plans = {b: [_geometry(c, dtype) for c in _served_calls(name, b)]
+             for b in (1, 4, 16)}
+    calls = _served_calls(name, 1)
+    ws = [c for c, g in zip(calls, plans[1]) if g.ws]
+    if dtype == torch.float32:
+        assert not ws
+    else:
+        assert len(ws) == WS_ROUTES[name]
+        assert all(c["x_shape"][1] >= 64 for c in ws)
+        if name.startswith("vgg"):
+            assert len(calls) - len(ws) == 1 and calls[0]["x_shape"][1] == 3
+    for b in (4, 16):
+        for g1, gb in zip(plans[1], plans[b]):
+            assert gb.ws == g1.ws
+            if g1.ws:
+                assert dataclasses.replace(gb, N=1) == g1
+
+
+def test_ws_vgg16_geometries_fit_and_fill_a_wave():
+    """Each of VGG16's warp-specialised launches fits the card's shared
+    memory, keeps its K decomposition (k-steps and stages are the weights'
+    alone, as the one-warpgroup kernel's), and gives at least 95% of a
+    wave of one-CTA blocks at WS_IMAGES images."""
+    for call in _served_calls("vgg16", kconv.WS_IMAGES):
+        g = _geometry(call, torch.bfloat16)
+        if not g.ws:
+            continue
+        _check_ws(g)
+        old = kconv.plan_conv_dense(
+            call["x_shape"], call["w_shape"], stride=call["stride"],
+            pad=call["pad"], groups=call["groups"],
+            activation=call["activation"], pool_k=call["pool_k"],
+            pool_s=call["pool_s"], dtype=torch.bfloat16)
+        assert not old.ws
+        assert (g.ktot, g.bk, g.stages) == (old.ktot, old.bk, old.stages)
+        assert g.ctas >= 0.95 * kconv.SMS
+        assert g.threads == kconv.WS_THREADS and g.kernel == "conv2d_dense_ws"
 
 
 def _walk_depthwise(x, w, bias, g, activation):

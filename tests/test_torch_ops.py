@@ -624,6 +624,9 @@ def test_flash_tile_constants_are_the_kernels():
     ("_ZN41_GLOBAL__N__0e17b1f8_9_conv2d_cu_56f0629719conv2d_dense_kernelI13"
      "__nv_bfloat16Li16EEEvPKT_S4_PKfPS2_NS_8ConvArgsE",
      "conv2d_dense_kernel<bf16,16>"),
+    ("_ZN41_GLOBAL__N__0e17b1f8_9_conv2d_cu_56f0629722conv2d_dense_ws_kernel"
+     "I13__nv_bfloat16Li256EEEvPKT_PKfPS2_NS_8ConvArgsE14CUtensorMap_stS9_",
+     "conv2d_dense_ws_kernel<bf16,256>"),
     ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_23f0aea712flash_kernel"
      "IfLi8EEEvPKT_S3_S3_PS1_iiiifiPKi", "flash_kernel<fp32,8>"),
     ("_ZN46_GLOBAL__N__167659e0_13_mamba2_ssd_cu_b136e7bc15ssd_scan_kernelEP"
