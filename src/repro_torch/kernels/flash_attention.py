@@ -203,8 +203,11 @@ def _library():
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd)."""
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).  The
+    softmax scale is ``scale``, default ``attention_scale(hd)``; either
+    is rounded once, to fp32, where it meets the scores."""
     _build.check_inputs("flash_attention", {"q": q, "k": k, "v": v})
     for n, t in (("q", q), ("k", k), ("v", v)):
         if t.ndim != 4:
@@ -214,7 +217,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}")
     check_shapes(q.shape, k.shape)
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal)
+        return attention_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     g = plan_flash(q.shape, k.shape, causal=causal, dtype=q.dtype)
@@ -226,7 +229,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k_tiles = _k_tile_table(g, q.device)
         rc = lib.flash_attention_launch(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o), g.Sq,
-            g.Sk, g.H, g.KV, g.hd, attention_scale(g.hd), int(g.causal),
+            g.Sk, g.H, g.KV, g.hd,
+            attention_scale(g.hd) if scale is None else float(scale),
+            int(g.causal),
             _build.DTYPE_CODE[q.dtype], *g.grid, g.smem, _build.ptr(k_tiles),
             _build.stream_of(q))
     _build.check(lib, rc, "flash_attention")

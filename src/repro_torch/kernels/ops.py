@@ -27,17 +27,19 @@ from repro_torch.kernels.ref import pad_time
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, block_q: int = 128,
-                        block_k: int = 128) -> torch.Tensor:
+                        block_k: int = 128,
+                        scale: float | None = None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.
 
     Sq and Sk must be multiples of ``block_q`` and ``block_k``, as the JAX
-    wrapper asserts; the kernel then picks its own tiles."""
+    wrapper asserts; the kernel then picks its own tiles.  ``scale`` is
+    the softmax scale, default ``1 / sqrt(hd)`` as the JAX kernel's."""
     Sq, Sk = q.shape[1], k.shape[1]
     if block_q < 1 or block_k < 1 or Sq % block_q or Sk % block_k:
         raise ValueError(f"flash_attention_gqa: sequence lengths ({Sq}, "
                          f"{Sk}) are not multiples of the blocks ({block_q}, "
                          f"{block_k})")
-    return _fa.flash_attention(q, k, v, causal=causal)
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
 def rwkv6_wkv(r, k, v, w, u, *, block_t: int = 64) -> torch.Tensor:

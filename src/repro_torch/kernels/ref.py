@@ -108,8 +108,10 @@ def attention_scale(hd: int) -> float:
     return 1.0 / hd**0.5
 
 
-def attention_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """Dense softmax attention in fp32, output in q's dtype.
+def attention_plain(q, k, v, *, causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Dense softmax attention in fp32, output in q's dtype; the scores
+    are scaled by ``scale`` (default ``attention_scale(hd)``).
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), H % KV == 0 (query head h
     reads K/V head h // (H // KV)).  Causal masking is end-aligned (query
@@ -121,7 +123,8 @@ def attention_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
     qf = q.float().transpose(1, 2)                          # (B, H, Sq, hd)
     kf = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
     vf = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * attention_scale(hd)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) \
+        * (attention_scale(hd) if scale is None else scale)
     if causal:
         rows = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
         cols = torch.arange(Sk, device=q.device)[None, :]

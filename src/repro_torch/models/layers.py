@@ -285,26 +285,20 @@ def moe(cfg: ModelConfig, p, x: torch.Tensor):
     return y.reshape(B, S, d), aux
 
 
-def moe_local(cfg: ModelConfig, router, wg, wu, wd, xt: torch.Tensor,
-              experts: tuple[int, int] | None = None):
-    """The local dispatch of ``moe``: xt (T, d) -> (y (T, d), aux).
-    ``experts`` = (e0, e1): the weights hold experts e0..e1-1 only (the
-    dry-run's expert-sharded rank), whose outputs are the only ones
-    combined; default all."""
-    T, d = xt.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
-    C = moe_capacity(cfg, T)
-    dev = xt.device
-
-    logits = xt.float() @ router                               # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate, eidx = torch.topk(probs, K, dim=-1)                  # (T, K)
-    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
-
+def moe_dispatch(eidx: torch.Tensor, E: int, C: int):
+    """The sort-based dispatch of the (T, K) token-expert pairs ``eidx``
+    into an (E*C) slot table.  Pairs are grouped by expert (stable sort,
+    so token order within an expert); an expert's pairs past its capacity
+    C are dropped into a trash slot E*C.  Returns ``slot_tok`` (E*C,), the
+    token of each slot (0 for an empty one), ``pair_slot`` (T*K,), each
+    pair's slot in (token, k) order, ``counts`` (E,), each expert's
+    pairs, and ``kept`` (T*K,), in sorted order, whether a pair has a
+    slot."""
+    T, K = eidx.shape
+    dev = eidx.device
     # Flatten the T*K (token, expert) pairs, group by expert (stable sort).
     flat_e = eidx.reshape(-1)                                  # (T*K,)
     flat_t = torch.arange(T, device=dev).repeat_interleave(K)
-    flat_g = gate.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     se, st = flat_e[order], flat_t[order]
     # rank of each entry within its expert group
@@ -318,7 +312,42 @@ def moe_local(cfg: ModelConfig, router, wg, wu, wd, xt: torch.Tensor,
     # slot table: token index per (E*C) slot (+1 trash, cut off)
     slot_tok = torch.zeros(E * C + 1, dtype=torch.long,
                            device=dev).index_put((slot,), st)[:-1]
+    pair_slot = torch.empty_like(slot)
+    pair_slot[order] = slot
+    return slot_tok, pair_slot, counts, keep
 
+
+def moe_combine(ye: torch.Tensor, pair_slot: torch.Tensor,
+                gate: torch.Tensor) -> torch.Tensor:
+    """Each token's K expert rows of ``ye`` (E*C, d), at ``pair_slot``
+    (the trash slot E*C reads a zero row), weighted by ``gate`` (T, K) in
+    ``ye``'s dtype and summed in top-k order."""
+    T, K = gate.shape
+    d = ye.shape[-1]
+    ye = torch.cat([ye, ye.new_zeros((1, d))])[pair_slot].reshape(T, K, d)
+    wk = gate.to(ye.dtype)
+    y = torch.zeros((T, d), dtype=ye.dtype, device=ye.device)
+    for j in range(K):
+        y = y + ye[:, j] * wk[:, j, None]
+    return y
+
+
+def moe_local(cfg: ModelConfig, router, wg, wu, wd, xt: torch.Tensor,
+              experts: tuple[int, int] | None = None):
+    """The local dispatch of ``moe``: xt (T, d) -> (y (T, d), aux).
+    ``experts`` = (e0, e1): the weights hold experts e0..e1-1 only (the
+    dry-run's expert-sharded rank), whose outputs are the only ones
+    combined; default all."""
+    T, d = xt.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = moe_capacity(cfg, T)
+
+    logits = xt.float() @ router                               # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.topk(probs, K, dim=-1)                  # (T, K)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    slot_tok, pair_slot, _, _ = moe_dispatch(eidx, E, C)
     xe = xt[slot_tok].reshape(E, C, d)                         # gather
     if experts is not None:
         xe = xe[experts[0]:experts[1]]
@@ -326,19 +355,12 @@ def moe_local(cfg: ModelConfig, router, wg, wu, wd, xt: torch.Tensor,
         * torch.einsum("ecd,edf->ecf", xe, wu)
     ye = torch.einsum("ecf,efd->ecd", h, wd).reshape(-1, d)
 
-    # combine: each pair's slot (trash = a zero row), summed in top-k order
-    pair_slot = torch.empty_like(slot)
-    pair_slot[order] = slot
     if experts is not None:
         lo, hi = experts[0] * C, experts[1] * C
         pair_slot = torch.where((pair_slot >= lo) & (pair_slot < hi),
                                 pair_slot - lo,
                                 torch.full_like(pair_slot, hi - lo))
-    ye = torch.cat([ye, ye.new_zeros((1, d))])[pair_slot].reshape(T, K, d)
-    wk = flat_g.reshape(T, K).to(ye.dtype)
-    y = torch.zeros((T, d), dtype=ye.dtype, device=dev)
-    for j in range(K):
-        y = y + ye[:, j] * wk[:, j, None]
+    y = moe_combine(ye, pair_slot, gate)
 
     # Switch-style load-balance aux loss.
     me = probs.mean(dim=0)                                     # (E,)
