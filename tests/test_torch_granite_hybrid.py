@@ -11,6 +11,12 @@ seeded weights, on the CPU, at a granite-shaped size: d 64, two periods of
   float8 control 0.071 at least).
 * A routing skewed onto few experts drops nothing (dropless capacity),
   where the capacity-factor dispatch of ``layers.moe_local`` would.
+* A decode step dispatches with T slots an expert and no host sync,
+  dropless and with the logits of the data-dependent capacity; it writes
+  the cache in place; the loads it reports are the real ones; a step
+  past the cache's length is refused.
+* On a card (``-m card``): decode steps replayed from CUDA graphs give
+  the eager steps' logits bit for bit, one capture a batch.
 * Each multiplier is applied where the published model applies it, and
   attention carries no positional encoding.
 * ``layer_types`` decides each layer's mixer, in order.
@@ -136,6 +142,162 @@ def test_a_skewed_routing_drops_nothing(fp32):
     eidx = torch.topk(x.reshape(33, -1) @ p["router"], 2, dim=-1).indices
     c = L.moe_capacity(all_configs()["granite-moe-3b-a800m"], 33)
     assert not L.moe_dispatch(eidx, 8, c)[3].all()
+
+
+def _no_capacity(counts):
+    raise AssertionError("a decode step took the data-dependent capacity")
+
+
+def test_decode_never_calls_capacity(fp32, monkeypatch):
+    cfg, model = fp32
+    toks = _tokens(S=20, seed=11)
+    cache = model.init_cache(2, 20, torch.float32)
+    _, cache = model.prefill(toks[:, :10], cache)
+    monkeypatch.setattr(G, "capacity", _no_capacity)
+    for j in range(10, 20):
+        logits, cache = model.decode(toks[:, j:j + 1], cache)
+        assert torch.isfinite(logits).all()
+    assert cache.pos == 20 and model.dropped() == 0
+
+
+def test_a_skewed_routing_drops_nothing_at_decode(fp32, monkeypatch):
+    """The router of ``test_a_skewed_routing_drops_nothing`` on decode
+    steps of 16 tokens: every token picks experts 1 and 6, so each holds
+    T = 16 pairs, all its T slots, and nothing is dropped."""
+    cfg, model = fp32
+    monkeypatch.setattr(G, "capacity", _no_capacity)
+    p = dict(model.params["layers"][0])
+    p["router"] = p["router"].clone()
+    p["router"][:, [1, 6]] = 5.0 / cfg.hidden_size ** 0.5
+    m = G.GraniteHybrid(cfg, model.params)
+    g = torch.Generator().manual_seed(6)
+    d = dataclasses.asdict(cfg)
+    for _ in range(4):
+        x = 1.0 + 0.1 * torch.randn(16, 1, cfg.hidden_size, generator=g)
+        got = m._moe(p, x)
+        want, _ = R.moe(d, p, x[:, 0], R.store_as(torch.float32))
+        assert _err(got[:, 0], want) <= TOL[torch.float32]
+    eidx = torch.topk(x[:, 0] @ p["router"], 2, dim=-1).indices
+    assert sorted(eidx.unique().tolist()) == [1, 6]
+    stats = m.load_stats()
+    assert stats["dropped"] == 0 and m.dropped() == 0
+    assert stats["largest"] == 16 and stats["max_mean"] == 16
+    assert stats["calls"] == 4 and stats["mean_mean"] == 16 * 2 / 8
+
+
+def test_decode_logits_equal_those_of_the_data_dependent_capacity(
+        fp32, monkeypatch):
+    """The same decode steps with each expert given the call's largest
+    load (the steps' tokens as one call of B positions) instead of T
+    slots: the same logits at fp32."""
+    cfg, model = fp32
+    toks = _tokens(B=3, S=24, seed=12)
+    moe = G.GraniteHybrid._moe
+
+    def data_dependent(self, p, x):
+        if x.shape[1] != 1:
+            return moe(self, p, x)
+        return moe(self, p, x.transpose(0, 1)).transpose(0, 1)
+    rows = []
+    for m in (G.GraniteHybrid(cfg, model.params),
+              G.GraniteHybrid(cfg, model.params)):
+        cache = m.init_cache(3, 24, torch.float32)
+        logits, cache = m.prefill(toks[:, :12], cache)
+        out = [logits]
+        for j in range(12, 24):
+            logits, cache = m.decode(toks[:, j:j + 1], cache)
+            out.append(logits)
+        rows.append(torch.stack(out, 1))
+        monkeypatch.setattr(G.GraniteHybrid, "_moe", data_dependent)
+    assert _err(rows[0], rows[1]) <= 1e-6
+    assert torch.equal(rows[0][:, 0], rows[1][:, 0])     # the prefill's
+
+
+def _recording_dispatch(monkeypatch):
+    """``layers.moe_dispatch`` patched to note each call's capacity C and
+    largest load."""
+    dispatch, calls = L.moe_dispatch, []
+
+    def recorded(eidx, E, C):
+        out = dispatch(eidx, E, C)
+        calls.append((C, int(out[2].max())))
+        return out
+    monkeypatch.setattr(L, "moe_dispatch", recorded)
+    return calls
+
+
+@pytest.mark.parametrize("T", [1, 5, 16])
+def test_a_decode_step_dispatches_at_t_slots(fp32, monkeypatch, T):
+    """One position of T tokens: ``layers.moe_dispatch`` is given C = T,
+    keeps every pair, and the output is the reference's experts."""
+    cfg, model = fp32
+    monkeypatch.setattr(G, "capacity", _no_capacity)
+    calls = _recording_dispatch(monkeypatch)
+    p = model.params["layers"][1]
+    x = torch.randn(T, 1, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(20 + T))
+    m = G.GraniteHybrid(cfg, model.params)
+    got = m._moe(p, x)
+    assert [c for c, _ in calls] == [T] and calls[0][1] <= T
+    assert m.dropped() == 0
+    want, _ = R.moe(dataclasses.asdict(cfg), p, x[:, 0],
+                    R.store_as(torch.float32))
+    assert _err(got[:, 0], want) <= TOL[torch.float32]
+
+
+def test_decode_writes_the_cache_in_place(fp32):
+    cfg, model = fp32
+    toks = _tokens(S=14, seed=13)
+    cache = model.init_cache(2, 16, torch.float32)
+    _, cache = model.prefill(toks[:, :12], cache)
+    ptrs = [t.data_ptr() for st in cache.states for t in st]
+    before = [t.clone() for st in cache.states for t in st]
+    for j in (12, 13):
+        states, pos = cache.states, cache.pos
+        _, cache = model.decode(toks[:, j:j + 1], cache)
+        assert cache.states is states and cache.pos == pos + 1
+    assert [t.data_ptr() for st in cache.states for t in st] == ptrs
+    after = [t for st in cache.states for t in st]
+    assert all(not torch.equal(a, b) for a, b in zip(after, before))
+    # on the CPU every step runs eagerly: nothing captured
+    assert model.stats["graph_captures"] == 0
+    assert model.stats["decode_graph_steps"] == 0
+
+
+def test_a_decode_step_past_the_cache_raises(fp32):
+    """A cache of 12 positions, all used: the next step is refused on the
+    host before it writes anything."""
+    cfg, model = fp32
+    toks = _tokens(S=13, seed=15)
+    cache = model.init_cache(2, 12, torch.float32)
+    _, cache = model.prefill(toks[:, :11], cache)
+    _, cache = model.decode(toks[:, 11:12], cache)
+    before = [t.clone() for st in cache.states for t in st]
+    with pytest.raises(ValueError, match="12 positions"):
+        model.decode(toks[:, 12:13], cache)
+    after = [t for st in cache.states for t in st]
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+
+
+def test_load_stats_report_the_real_loads_of_decode_steps(fp32, monkeypatch):
+    """Six decode steps of 5 tokens from an empty cache: the largest load
+    and the mean of each call's largest are the dispatch's own counts,
+    not the T slots."""
+    cfg, model = fp32
+    calls = _recording_dispatch(monkeypatch)
+    m = G.GraniteHybrid(cfg, model.params)
+    cache = m.init_cache(5, 6, torch.float32)
+    toks = _tokens(B=5, S=6, seed=14)
+    for j in range(6):
+        _, cache = m.decode(toks[:, j:j + 1], cache)
+    stats = m.load_stats()
+    assert all(c == 5 for c, _ in calls)
+    loads = [load for _, load in calls]
+    assert len(loads) == stats["calls"] == 6 * cfg.num_hidden_layers
+    assert stats["largest"] == max(loads) <= 5
+    assert stats["max_mean"] == pytest.approx(sum(loads) / len(loads))
+    assert stats["max_mean"] < 5 and stats["dropped"] == 0
+    assert m.stats["decode_eager_steps"] == 6
 
 
 def test_a_planted_capacity_drop_is_counted(fp32, monkeypatch):
@@ -349,3 +511,50 @@ def test_every_registered_decoder_serves_as_before(arch):
         for got, rows in zip(r.logits, want_rows):
             assert np.array_equal(got, rows[i])
     assert eng.stats["decode_steps"] == 3
+
+
+# ---------------------------------------------------------------------------
+# On a card: the decode step replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs replay only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("B", [1, 3, 16])
+def test_replayed_decode_steps_give_the_eager_logits_bitwise(card, B):
+    """Two batches of a 64-token prefill and 127 decode steps, each on a
+    new cache: the graphed model's logits equal those of the same model
+    kept eager (its capture a no-op) bit for bit, and each batch reads 1
+    eager step, 1 capture and 126 replays, the second capturing afresh."""
+    cfg = G.tiny()
+    params = G.init_params(cfg, SEED, card, torch.bfloat16)
+    graphed, eager = G.GraniteHybrid(cfg, params), \
+        G.GraniteHybrid(cfg, params)
+    eager._capture = lambda step: None
+    gen = torch.Generator().manual_seed(B)
+    for batch in (1, 2):
+        toks = torch.randint(0, cfg.vocab_size, (B, 64 + 127),
+                             generator=gen).to(card)
+        rows = []
+        for m in (graphed, eager):
+            cache = m.init_cache(B, 64 + 128)
+            logits, cache = m.prefill(toks[:, :64], cache)
+            out = [logits]
+            for j in range(64, 64 + 127):
+                logits, cache = m.decode(toks[:, j:j + 1], cache)
+                out.append(logits)
+            rows.append(torch.stack(out, 1))
+            assert m._step.states is cache.states
+        assert torch.equal(rows[0], rows[1]), _err(rows[0], rows[1])
+        assert [graphed.stats[k] for k in (
+            "graph_captures", "decode_graph_steps", "decode_eager_steps")] \
+            == [batch, 126 * batch, batch]
+        assert graphed.stats["moe_calls"] == eager.stats["moe_calls"]
+    assert eager.stats["graph_captures"] == 0
+    assert eager.stats["decode_eager_steps"] == 2 * 127
+    assert graphed.load_stats() == eager.load_stats()
+    assert graphed.dropped() == 0
