@@ -51,7 +51,7 @@ prefill starts.  On the CPU every step runs eagerly.
 
 Weights are drawn per layer from the seed (``init_params``): layer i's
 leaves from a generator of its own, so a reference can draw layer i alone
-(``repro_torch.reference.granite_hybrid`` draws the same bits).  Under a
+(``chipbench.reference.granite_hybrid`` draws the same bits).  Under a
 profiler a decode step opens the spans ``model/mamba``,
 ``model/attention``, ``model/moe`` (the router, experts and shared
 expert, with their norm) and ``model/head`` around its sublayers, eager

@@ -1,31 +1,16 @@
-"""Fault-tolerant split-execution runtime (the PyTorch port of
-``repro.runtime.runtime``; the control flow is the same line for line,
-only the tensor touch points differ).
+"""Fault-tolerant split execution of a CNN over a chain of tiers: the
+PyTorch port of ``repro.runtime.runtime``'s ``ChainRuntime``, held by the
+tests to its events, virtual clock and counters.
 
-``models.cnn.apply_split`` assumes the client->server link never fails;
-``SplitRuntime`` wraps the same client/boundary/server walk in a recovery
-loop so one link hiccup no longer hangs the "optimal" split:
-
-1. client stage runs layers [0, l1) exactly as ``apply_split`` would;
-2. the boundary payload crosses a ``FaultyLink`` through the reliable
-   transfer layer (crc32 + per-attempt timeout + bounded retries with
-   exponential backoff, see runtime/transfer.py);
-3. on success the server stage runs [l1, L) on the delivered (verified,
-   bit-identical) payload;
-4. on retry exhaustion the runtime degrades *gracefully*: if the client
-   memory budget admits the whole model it continues from the boundary
-   activation on-device (bit-identical logits, latency paid instead of an
-   error); otherwise it re-picks the next-best feasible split from the
-   plan's cached Pareto front via TOPSIS with link-weight re-weighting
-   (``core.smartsplit.repick_split`` -- microseconds, no GA re-run) and
-   tries again, never repeating a failed split index.
-
-An EWMA estimator (runtime/link_estimator.py) folds every observed
-transfer into an effective-bandwidth estimate; sustained degradation
-triggers a *proactive* re-split at the next request instead of burning
-retries against a link the runtime already knows is bad.  Every recovery
-action lands in the structured ``EventLog`` -- the invariant tests and
-the chaos harness (benchmarks/robustness_bench.py) both key on it.
+Stage k runs on tier k exactly as ``models.cnn.apply_split`` would; its
+boundary is encoded for hop k's wire format, crosses a ``FaultyLink``
+through the reliable transfer layer (runtime/transfer.py) and is decoded
+for stage k+1.  When a hop exhausts its retries or a tier fails, the
+runtime walks the degradation ladder of ``ChainRuntime``'s docstring
+instead of failing the request.  A two-tier split is the K=2 chain
+(``core.hardware.paper_chain(2)``).  Every recovery action lands in the
+structured ``EventLog``: the invariant tests and the chaos harness both
+key on it.
 """
 from __future__ import annotations
 
@@ -37,14 +22,12 @@ import torch
 
 from repro_torch.core.chainplan import ChainPlan
 from repro_torch.core.costs import (ModelProfile, _tier_compute_time,
-                              resolve_chain_wire)
-from repro_torch.core.dtype_policy import conv_dtype, resolve_wire_dtype
-from repro_torch.core.hardware import (ChainHardware, NetworkState,
-                                 TwoTierHardware, chain_of, standby_chain,
-                                 standby_for)
+                                    resolve_chain_wire)
+from repro_torch.core.dtype_policy import conv_dtype
+from repro_torch.core.hardware import (ChainHardware, TwoTierHardware,
+                                       chain_of, standby_chain)
 from repro_torch.core.multicut import repick_chain
-from repro_torch.core.smartsplit import (SplitPlan, cached_chain_plan,
-                                   repick_split)
+from repro_torch.core.smartsplit import cached_chain_plan
 from repro_torch.models import cnn as cnn_lib
 from repro_torch.runtime import events as ev
 from repro_torch.runtime.breakers import OPEN, CircuitBreaker, tier_breakers
@@ -52,399 +35,18 @@ from repro_torch.runtime.events import Event, EventLog
 from repro_torch.runtime.faults import FaultyLink, VirtualClock
 from repro_torch.runtime.link_estimator import EwmaLinkEstimator, chain_estimators
 from repro_torch.runtime.tier_faults import (FaultyTier, TierCrash, TierError,
-                                       TierShed)
+                                             TierShed)
 from repro_torch.runtime.transfer import (RetryPolicy, TransferFailed,
-                                    send_with_retry)
-from repro_torch.runtime.wire import (decode_boundary, encode_boundary,
-                                      host_bytes, tensor_from_bytes)
+                                          send_with_retry)
+from repro_torch.runtime.wire import decode_boundary, encode_boundary
 from repro_torch.spans import span
 
 
 class SplitUnrecoverable(RuntimeError):
-    """Transfer failed, on-device fallback infeasible, Pareto front
-    exhausted: the request cannot complete."""
+    """A hop or a tier failed and no rung of the ladder was left: the
+    request cannot complete."""
 
 
-@dataclasses.dataclass(frozen=True)
-class InferenceResult:
-    """One request's outcome + the recovery evidence behind it."""
-
-    logits: torch.Tensor
-    split_index: int             # split that actually produced the logits
-    planned_split: int           # active plan's split when the request began
-    degraded: bool               # any fallback / re-pick happened
-    on_device: bool              # completed without the server stage
-    attempts: int                # wire attempts across all splits tried
-    link_elapsed_s: float        # virtual link time (transfers + backoff)
-    wire_bytes: int              # bytes put on the wire (incl. retransmits)
-    goodput_bytes: int           # useful bytes delivered
-    events: tuple[Event, ...]    # this request's slice of the event log
-
-    @property
-    def retransmitted_bytes(self) -> int:
-        return self.wire_bytes - self.goodput_bytes
-
-
-class SplitRuntime:
-    """Executes a ``SplitPlan`` for one CNN over a (possibly faulty) link.
-
-    model: a name from ``cnn.CNN_MODELS`` or an explicit layer list.
-    params: the layer parameters (``cnn.init_cnn``).
-    plan: the optimiser's pick, with its cached Pareto front.
-    profile: the ``ModelProfile`` the plan was computed from (same dtype
-      policy and input shape -- re-pick feasibility is judged against it).
-    hw: the planning environment (client memory budget, nominal link).
-    link: the channel to execute against (default: a fault-free
-      ``FaultyLink`` at the plan's nominal bandwidth).
-    policy: transfer-layer retry/timeout/backoff knobs.
-    device_fallback: None (default) = allowed iff the whole model fits the
-      client memory budget; True/False forces the decision (benches use
-      False to exercise the re-pick path on roomy clients).
-    resplit_ratio: proactive re-split trigger -- re-pick before the next
-      request once planned/estimated bandwidth exceeds this.
-    wire: boundary wire format (``fp32``/``bf16``/``int8``/``follow``).
-      None resolves plan.wire_dtypes[0] if the plan carries one, else the
-      ``REPRO_LINK0_WIRE_DTYPE`` / ``REPRO_WIRE_DTYPE`` env; ``follow``
-      (the default everywhere) ships the storage dtype -- the legacy
-      bit-identical path.
-    """
-
-    def __init__(self, model: str | list, params, plan: SplitPlan,
-                 profile: ModelProfile, hw: TwoTierHardware, *,
-                 link: FaultyLink | None = None,
-                 policy: RetryPolicy = RetryPolicy(),
-                 dtype: str | None = None,
-                 wire: str | None = None,
-                 device_fallback: bool | None = None,
-                 estimator_alpha: float = 0.3,
-                 resplit_ratio: float = 2.0,
-                 jitter_seed: int = 0,
-                 tier_faults: list[FaultyTier] | None = None,
-                 breakers: list[CircuitBreaker] | None = None,
-                 standby: bool = True,
-                 log: EventLog | None = None):
-        self.layers = cnn_lib.CNN_MODELS[model] if isinstance(model, str) \
-            else model
-        if profile.num_layers != len(self.layers):
-            raise ValueError(
-                f"profile has {profile.num_layers} layers, model has "
-                f"{len(self.layers)}: plan and runtime would disagree")
-        self.params = params
-        self.plan = plan                     # active (may be re-picked)
-        self.profile = profile
-        self.hw = hw
-        self.link = link if link is not None \
-            else FaultyLink(hw.link.bandwidth)
-        self.policy = policy
-        self.dtype = dtype
-        self._storage = conv_dtype(dtype)
-        if wire is None and plan.wire_dtypes:
-            wire = plan.wire_dtypes[0]
-        self.wire = resolve_wire_dtype(wire, storage=self._storage, hop=0)
-        self.device_fallback = device_fallback
-        self.resplit_ratio = float(resplit_ratio)
-        self.estimator = EwmaLinkEstimator(hw.link.bandwidth,
-                                           alpha=estimator_alpha)
-        self.net = NetworkState(hw.link)
-        self.log = log if log is not None else EventLog()
-        self._jitter_rng = np.random.default_rng(jitter_seed)
-        if tier_faults is not None and len(tier_faults) != 2:
-            raise ValueError(
-                f"SplitRuntime takes 2 tier-fault models (client, "
-                f"server), got {len(tier_faults)}")
-        self.tier_faults = tier_faults
-        if breakers is None and tier_faults is not None:
-            breakers = tier_breakers([hw.client.name, hw.server.name],
-                                     log=self.log)
-        if breakers is not None and len(breakers) != 2:
-            raise ValueError(
-                f"SplitRuntime takes 2 breakers, got {len(breakers)}")
-        self.breakers = breakers
-        self.standby = bool(standby)
-        self._cm = profile.cum_mem()
-        # aggregate counters (the chaos harness reads these)
-        self.n_requests = 0
-        self.n_recovered = 0        # completed despite >= 1 failed attempt
-        self.n_fallback_device = 0
-        self.n_repicks = 0
-        self.n_proactive = 0
-        self.n_failovers = 0
-        # per-hop transfer counters (one hop here; the chain runtime has
-        # K-1 -- same stats schema so the chaos artifact can always say
-        # *which* hop degraded)
-        self.hop_attempts = 0
-        self.hop_wire_bytes = 0
-        self.hop_goodput_bytes = 0
-        self.hop_raw_bytes = 0      # storage-dtype size of sent boundaries
-
-    # -- stages --------------------------------------------------------
-    def _run(self, x, start: int, stop: int):
-        return cnn_lib.apply_cnn(self.layers, self.params, x, start=start,
-                                 stop=stop, dtype=self.dtype)
-
-    @staticmethod
-    def _serialize(arr: torch.Tensor) -> tuple[bytes, torch.Tensor]:
-        return host_bytes(arr), arr
-
-    @staticmethod
-    def _deserialize(data: bytes, like: torch.Tensor) -> torch.Tensor:
-        return tensor_from_bytes(data, like.dtype, like.shape, like.device)
-
-    # -- degradation helpers -------------------------------------------
-    def _device_ok(self) -> bool:
-        if self.device_fallback is not None:
-            return self.device_fallback
-        full_mem = float(self.profile.cum_mem()[-1])
-        return full_mem <= self.hw.client.memory_budget
-
-    def _repick(self, exclude: tuple[int, ...],
-                kind: str) -> SplitPlan | None:
-        """Next-best feasible split under the current bandwidth estimate;
-        None when the front is exhausted."""
-        try:
-            new = repick_split(self.plan, self.profile, self.hw,
-                               bandwidth=self.estimator.bandwidth,
-                               exclude=exclude)
-        except ValueError:
-            return None
-        if kind == ev.PROACTIVE_RESPLIT and \
-                new.split_index == self.plan.split_index:
-            return None                      # estimate agrees with plan
-        self.log.emit(kind, self.link.clock,
-                      old_split=self.plan.split_index,
-                      new_split=new.split_index,
-                      est_bandwidth=self.estimator.bandwidth,
-                      degradation=self.estimator.degradation())
-        return new
-
-    def _maybe_proactive_resplit(self) -> None:
-        if self.estimator.degradation() < self.resplit_ratio:
-            return
-        new = self._repick(exclude=(), kind=ev.PROACTIVE_RESPLIT)
-        if new is not None:
-            self.plan = new
-            self.n_proactive += 1
-
-    def _vet_server(self, l1: int):
-        """Breaker-gate + fault-vet the server stage for one request.
-
-        None = healthy (dispatch).  Otherwise ``(transient, cause)`` for
-        the degradation ladder: ``transient`` False means the tier is
-        known-down (open breaker, active crash window) and a cut re-pick
-        onto the same box would be futile."""
-        t = self.link.clock
-        if self.breakers is not None and not self.breakers[1].allow(t):
-            return False, "breaker_open"
-        if self.tier_faults is None:
-            return None
-        ft = self.tier_faults[1]
-        mem = float(self._cm[-1] - self._cm[l1])
-        try:
-            # compute_s=0: SplitRuntime's clock accounts link time only,
-            # so the model vets (crash / shed) without stretching time.
-            ft.execute(t, 0.0, mem_bytes=mem)
-        except TierError as fail:
-            kind = ev.TIER_SHED if isinstance(fail, TierShed) \
-                else ev.TIER_CRASH
-            self.log.emit(kind, t, tier=1, split=l1, error=str(fail))
-            if self.breakers is not None:
-                self.breakers[1].record_failure(t)
-            transient = not (isinstance(fail, TierCrash)
-                             and ft.in_crash_window(t))
-            return transient, kind
-        if self.breakers is not None:
-            self.breakers[1].record_success(t)
-        return None
-
-    def _tier_failover(self) -> SplitPlan | None:
-        """Swap the server for its warm standby and TOPSIS re-pick over
-        the plan's cached front (never a GA re-run); None when disabled
-        or no standby is registered for the current server."""
-        if not self.standby:
-            return None
-        spare = standby_for(self.hw.server)
-        if spare is None:
-            return None
-        old = self.hw.server.name
-        hw = dataclasses.replace(self.hw, server=spare)
-        try:
-            new = repick_split(self.plan, self.profile, hw,
-                               bandwidth=self.estimator.bandwidth)
-        except ValueError:
-            return None
-        self.hw = hw
-        if self.tier_faults is not None:
-            self.tier_faults[1] = FaultyTier(spare.name)
-        if self.breakers is not None:
-            self.breakers[1].reset()
-        self.n_failovers += 1
-        self.log.emit(ev.TIER_FAILOVER, self.link.clock, tier=1,
-                      old_tier=old, new_tier=spare.name,
-                      new_split=new.split_index)
-        return new
-
-    # -- the request loop ----------------------------------------------
-    def infer(self, x) -> InferenceResult:
-        """Run one request to completion (or raise SplitUnrecoverable).
-
-        The returned logits are bit-identical to the fault-free
-        ``apply_split`` run whenever the executed split equals the planned
-        one (clean transfer after any retries, or on-device continuation);
-        a re-picked split is a *different* placement of the same exact
-        computation -- still the fault-free logits of that split."""
-        self.n_requests += 1
-        mark = len(self.log)
-        self._maybe_proactive_resplit()
-        planned = self.plan.split_index
-        L = len(self.layers)
-        attempts = 0
-        wire = goodput = 0
-        t0 = self.link.clock
-        tried: tuple[int, ...] = ()
-        tier_degraded = False
-        l1 = planned
-        while True:
-            boundary = self._run(x, 0, l1)
-            if l1 == L:                      # everything on the client
-                logits = boundary
-                on_device = True
-                break
-            data, meta = encode_boundary(boundary, self.wire)
-            if self.wire != self._storage:
-                self.log.emit(ev.WIRE_ENCODE, self.link.clock,
-                              what=f"boundary@l1={l1}", wire=self.wire,
-                              raw_bytes=meta.raw_bytes,
-                              payload_bytes=len(data))
-            try:
-                out = send_with_retry(self.link, data, self.policy,
-                                      rng=self._jitter_rng, log=self.log,
-                                      what=f"boundary@l1={l1}",
-                                      framed=meta.framed)
-                attempts += out.attempts
-                wire += out.wire_bytes
-                goodput += out.goodput_bytes
-                self.hop_attempts += out.attempts
-                self.hop_wire_bytes += out.wire_bytes
-                self.hop_goodput_bytes += out.goodput_bytes
-                self.hop_raw_bytes += meta.raw_bytes
-                self.estimator.observe(out.goodput_bytes,
-                                       out.success_elapsed_s)
-                self.net.update(self.estimator.bandwidth)
-                verdict = self._vet_server(l1)
-                if verdict is None:
-                    logits = self._run(
-                        decode_boundary(out.payload, meta), l1, L)
-                    on_device = False
-                    break
-                # Server-tier degradation ladder: re-pick (transient
-                # failures only) -> standby failover -> on-device
-                # fallback -> give up.
-                tier_degraded = True
-                tried = tried + (l1,)
-                transient, cause = verdict
-                if transient:
-                    new = self._repick(exclude=tried, kind=ev.REPICK)
-                    if new is not None:
-                        self.plan = new
-                        self.n_repicks += 1
-                        l1 = new.split_index
-                        continue
-                new = self._tier_failover()
-                if new is not None:
-                    self.plan = new
-                    l1 = new.split_index
-                    tried = ()
-                    continue
-                if self._device_ok():
-                    self.log.emit(ev.FALLBACK_DEVICE, self.link.clock,
-                                  split=l1, cause=cause)
-                    self.n_fallback_device += 1
-                    logits = self._run(boundary, l1, L)
-                    on_device = True
-                    break
-                self.log.emit(ev.UNRECOVERABLE, self.link.clock,
-                              tried=list(tried), cause=cause)
-                raise SplitUnrecoverable(
-                    f"server tier failed ({cause}); no standby, "
-                    f"on-device fallback infeasible and Pareto front "
-                    f"exhausted")
-            except TransferFailed as fail:
-                attempts += fail.attempts
-                wire += fail.wire_bytes
-                self.hop_attempts += fail.attempts
-                self.hop_wire_bytes += fail.wire_bytes
-                self.hop_raw_bytes += meta.raw_bytes
-                # the link burned fail.elapsed_s and delivered nothing
-                self.estimator.observe(0.0, fail.elapsed_s)
-                self.net.update(self.estimator.bandwidth, outage=True)
-                tried = tried + (l1,)
-                if self._device_ok():
-                    self.log.emit(ev.FALLBACK_DEVICE, self.link.clock,
-                                  split=l1, attempts=fail.attempts)
-                    self.n_fallback_device += 1
-                    logits = self._run(boundary, l1, L)
-                    on_device = True
-                    break
-                new = self._repick(exclude=tried, kind=ev.REPICK)
-                if new is None:
-                    self.log.emit(ev.UNRECOVERABLE, self.link.clock,
-                                  tried=list(tried))
-                    raise SplitUnrecoverable(
-                        f"transfer failed at splits {list(tried)}; "
-                        f"on-device fallback infeasible and Pareto front "
-                        f"exhausted") from fail
-                self.plan = new
-                self.n_repicks += 1
-                l1 = new.split_index
-        self.net.update(self.estimator.bandwidth, outage=False)
-        degraded = bool(tried) or l1 != planned or tier_degraded
-        if degraded or attempts > 1:
-            self.n_recovered += 1
-        return InferenceResult(
-            logits=logits, split_index=l1, planned_split=planned,
-            degraded=degraded, on_device=on_device, attempts=attempts,
-            link_elapsed_s=self.link.clock - t0, wire_bytes=wire,
-            goodput_bytes=goodput,
-            events=tuple(self.log.since(mark)))
-
-    # -- reporting ------------------------------------------------------
-    def stats(self) -> dict:
-        """Aggregate counters + link counters + event-kind histogram."""
-        return {
-            "requests": self.n_requests,
-            "recovered": self.n_recovered,
-            "fallback_device": self.n_fallback_device,
-            "repicks": self.n_repicks,
-            "proactive_resplits": self.n_proactive,
-            "failovers": self.n_failovers,
-            "active_split": self.plan.split_index,
-            "est_bandwidth": self.estimator.bandwidth,
-            "degradation": self.estimator.degradation(),
-            "link": self.link.counters(),
-            "tiers": None if self.tier_faults is None else
-                [ft.counters() for ft in self.tier_faults],
-            "breakers": None if self.breakers is None else
-                [br.counters() for br in self.breakers],
-            "hops": [{
-                "hop": 0,
-                "wire_dtype": self.wire,
-                "attempts": self.hop_attempts,
-                "wire_bytes": self.hop_wire_bytes,
-                "goodput_bytes": self.hop_goodput_bytes,
-                "raw_bytes": self.hop_raw_bytes,
-                "retransmitted_bytes": (self.hop_wire_bytes
-                                        - self.hop_goodput_bytes),
-                "est_bandwidth": self.estimator.bandwidth,
-                "degradation": self.estimator.degradation(),
-                "link": self.link.counters(),
-            }],
-            "events": self.log.counts(),
-        }
-
-
-# ---------------------------------------------------------------------------
-# N-tier chain execution
-# ---------------------------------------------------------------------------
 def microbatch_slices(batch: int, microbatches: int
                       ) -> list[tuple[int, int]]:
     """Contiguous [start, stop) microbatch slices of a batch: an even
@@ -462,12 +64,74 @@ def microbatch_slices(batch: int, microbatches: int
     return [(int(offsets[i]), int(offsets[i + 1])) for i in range(M)]
 
 
+def links_and_clock(hw: ChainHardware, links: list[FaultyLink] | None
+                    ) -> tuple[list[FaultyLink], VirtualClock]:
+    """The chain's links and the virtual clock they share: ``links`` as
+    given, else fault-free links at ``hw``'s nominal bandwidths on one new
+    clock.  Raises unless there is one link a hop."""
+    if links is None:
+        clock = VirtualClock()
+        links = [FaultyLink(link.bandwidth, clock=clock)
+                 for link in hw.links]
+    else:
+        links = list(links)
+        clock = links[0]._clock if links else VirtualClock()
+    if len(links) != hw.num_tiers - 1:
+        raise ValueError(
+            f"{hw.num_tiers} tiers need {hw.num_tiers - 1} links, "
+            f"got {len(links)}")
+    return links, clock
+
+
+def tier_guards(hw: ChainHardware, tier_faults: list[FaultyTier] | None,
+                breakers: list[CircuitBreaker] | None, log: EventLog
+                ) -> tuple[list[FaultyTier] | None,
+                           list[CircuitBreaker] | None]:
+    """The per-tier fault models and circuit breakers, checked to hold
+    one a tier.  With fault models and no breakers, ``tier_breakers``
+    builds them (threshold 3, cooldown 1 s) on ``log``.  The lists are
+    returned as given, so every runtime handed them shares them."""
+    if tier_faults is not None and len(tier_faults) != hw.num_tiers:
+        raise ValueError(
+            f"{hw.num_tiers} tiers need {hw.num_tiers} tier-fault "
+            f"models, got {len(tier_faults)}")
+    if breakers is None and tier_faults is not None:
+        breakers = tier_breakers([t.name for t in hw.tiers], log=log)
+    if breakers is not None and len(breakers) != hw.num_tiers:
+        raise ValueError(
+            f"{hw.num_tiers} tiers need {hw.num_tiers} breakers, "
+            f"got {len(breakers)}")
+    return tier_faults, breakers
+
+
+def hop_stats(runtimes: list[ChainRuntime], k: int, wire_dtype: str,
+              estimator: EwmaLinkEstimator, link: FaultyLink) -> dict:
+    """Hop ``k``'s stats record, its counters summed over ``runtimes``:
+    one runtime, or a serving engine's bucket runtimes, which share the
+    hop's link and estimator."""
+    wire_bytes = sum(rt.hop_wire_bytes[k] for rt in runtimes)
+    goodput = sum(rt.hop_goodput_bytes[k] for rt in runtimes)
+    return {
+        "hop": k,
+        "wire_dtype": wire_dtype,
+        "attempts": sum(rt.hop_attempts[k] for rt in runtimes),
+        "wire_bytes": wire_bytes,
+        "goodput_bytes": goodput,
+        "raw_bytes": sum(rt.hop_raw_bytes[k] for rt in runtimes),
+        "retransmitted_bytes": wire_bytes - goodput,
+        "merges": sum(rt.hop_merges[k] for rt in runtimes),
+        "est_bandwidth": estimator.bandwidth,
+        "degradation": estimator.degradation(),
+        "link": link.counters(),
+    }
+
+
 class ChainResources:
     """Persistent per-tier / per-link next-free times on the virtual
     clock, shared across requests (and across the per-bucket runtimes of
     a serving engine).
 
-    ``ChainRuntime.infer`` normally resets its resource model per
+    Without one, ``ChainRuntime.infer`` resets its resource model per
     request, so consecutive requests serialise completely: request i+1's
     client stage cannot start before request i's makespan.  Passing one
     ``ChainResources`` instance to the runtime makes tier/link
@@ -516,19 +180,67 @@ class ChainInferenceResult:
         return self.wire_bytes - self.goodput_bytes
 
 
+class _Route:
+    """The request's active chain: its stage edges, and the ORIGINAL
+    tier id of each stage and hop id of each hop, so the resource model
+    and counters survive merges.  A restart builds a new one from a
+    plan's edges."""
+
+    __slots__ = ("edges", "tiers", "hops")
+
+    def __init__(self, edges):
+        self.edges = list(edges)
+        self.tiers = list(range(len(self.edges) - 1))
+        self.hops = list(range(len(self.edges) - 2))
+
+    def fold(self, p: int) -> int:
+        """Fold stage p + 1 into stage p: the cut between them and the
+        tier and hop after it drop out.  Returns the dropped hop's id."""
+        del self.edges[p + 1]
+        del self.tiers[p + 1]
+        return self.hops.pop(p)
+
+
+@dataclasses.dataclass
+class _Request:
+    """One request's wire totals and its way down the ladder so far."""
+
+    attempts: int = 0
+    retries: int = 0
+    wire_bytes: int = 0
+    goodput_bytes: int = 0
+    merged: tuple[int, ...] = ()              # hop ids folded away
+    tried: tuple[tuple[int, ...], ...] = ()   # cut vectors that failed
+    repicked: bool = False
+    fell_back: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class _Failure:
+    """A stage or a hop that failed, and the rungs it may take."""
+
+    t: float                  # when, on the virtual clock
+    cause: Exception | None   # None: an open breaker turned the stage away
+    stage: int                # the failed stage's or hop's route position
+    tier: int                 # the tier a failover replaces
+    merge_at: int | None      # the stage that may absorb the next one
+    repick: bool              # False for a persistent tier failure
+    hop: int | None           # the failed hop's id; None for a stage
+
+
 class ChainRuntime:
     """Executes a ``ChainPlan`` over K tiers and K-1 (possibly faulty)
     links with microbatch pipelining.
 
-    The generalisation of ``SplitRuntime``: every hop gets its own
-    ``FaultyLink`` (all on one shared ``VirtualClock``) and its own EWMA
-    bandwidth estimator.  The input batch is split into M microbatches;
-    hop transfers are scheduled against a per-tier / per-link resource
-    model, so microbatch m+1's stage-k compute overlaps microbatch m's
-    downstream hops exactly as ``core.costs.pipeline_latency`` prices it.
-    Numerics are schedule-independent: each microbatch's samples walk the
-    same layers whatever the timing, so concatenated logits stay
-    bit-identical to the single-device reference.
+    Every hop gets its own ``FaultyLink`` (all on one shared
+    ``VirtualClock``) and its own EWMA bandwidth estimator.  The input
+    batch is split into M microbatches; hop transfers are scheduled
+    against a per-tier / per-link resource model, so microbatch m+1's
+    stage-k compute overlaps microbatch m's downstream hops exactly as
+    ``core.costs.pipeline_latency`` prices it.  Numerics are
+    schedule-independent: each microbatch's samples walk the same layers
+    whatever the timing, so concatenated logits stay bit-identical to the
+    single-device reference.
 
     Degradation ladder (six rungs) when a hop exhausts its retries or a
     tier fails a stage (``tier_faults`` crash/shed, open breaker):
@@ -556,9 +268,11 @@ class ChainRuntime:
        when it fits the device memory budget.
     6. ``SplitUnrecoverable`` when nothing remains.
 
-    Rungs 4-5 extend the link-failure ladder only when the tier-fault
-    layer is active (``tier_faults``/``breakers`` passed); unprotected
-    runtimes keep the legacy merge -> re-pick -> unrecoverable contract.
+    A tier failure takes rungs 2-6.  A hop failure takes rungs 4-5 only
+    when the tier-fault layer is active (``tier_faults``/``breakers``
+    passed, as the serving engine and the CLI's ``--tier-faults`` do);
+    without it (the CLI otherwise, the examples) a dead hop goes merge ->
+    re-pick -> unrecoverable.
 
     microbatches: pipeline depth M (default: REPRO_CHAIN_MICROBATCH env,
       else the plan's own ``microbatches`` field); clamped to the batch.
@@ -567,24 +281,24 @@ class ChainRuntime:
     wire: per-hop boundary wire formats -- one policy string for every
       hop or a K-1 sequence.  None resolves plan.wire_dtypes if the plan
       carries them, else ``REPRO_LINK{k}_WIRE_DTYPE`` / ``REPRO_WIRE_
-      DTYPE`` per hop; ``follow`` ships the storage dtype (legacy path).
+      DTYPE`` per hop; ``follow`` ships the storage dtype bit for bit.
       Indexed by ORIGINAL hop id, so merges keep surviving hops' formats.
-    resources: optional shared ``ChainResources``.  Default None keeps
-      the legacy per-request resource model (every request starts from a
-      fresh chain).  With an instance, tier/link next-free times persist
+    resources: optional shared ``ChainResources``.  The serving engine
+      passes one (pipelined mode): tier/link next-free times persist
       across requests -- and across every runtime holding the same
       instance -- so back-to-back requests overlap on the pipeline
-      exactly like microbatches of one request do (the serving engine's
-      cross-request pipelining; pass ``infer(x, at=arrival)``).
+      exactly like microbatches of one request do (pass
+      ``infer(x, at=arrival)``).  The CLI passes none: every request
+      starts from a fresh chain.
     estimators: optional shared per-hop EWMA estimator list (the serving
       engine shares one set across its per-bucket runtimes: the hops are
       the same physical links, so bandwidth evidence should pool).
     profile_batch: how many samples ``profile``'s byte/flop terms
-      describe.  Default None keeps the legacy rule (the profile covers
-      the whole request batch; each of M microbatches costs 1/M of it);
-      an explicit value makes microbatch compute time proportional to
-      the slice's own sample count -- a per-sample profile
-      (``profile_batch=1``) then prices variable-size batches correctly.
+      describe.  The serving engine passes 1: it plans per sample and
+      dispatches batches of any size, so a microbatch's compute time is
+      proportional to its own sample count.  The CLI passes none: the
+      profile covers the whole request batch, and each of M microbatches
+      costs 1/M of it.
     tier_faults: optional per-tier ``FaultyTier`` models (length K,
       shared virtual clock) vetting every stage execution -- crash
       windows, stragglers, memory-pressure shedding.
@@ -632,25 +346,13 @@ class ChainRuntime:
         self.plan = plan                     # active (may be re-picked)
         self.profile = profile
         self.hw = hw
-        if links is None:
-            clock = VirtualClock()
-            links = [FaultyLink(link.bandwidth, clock=clock)
-                     for link in hw.links]
-        else:
-            links = list(links)
-            clock = links[0]._clock if links else VirtualClock()
-        if len(links) != hw.num_tiers - 1:
-            raise ValueError(
-                f"{hw.num_tiers} tiers need {hw.num_tiers - 1} links, "
-                f"got {len(links)}")
-        self.links = links
-        self.clock = clock
+        self.links, self.clock = links_and_clock(hw, links)
         self.policy = policy
         self.dtype = dtype
         self._storage = conv_dtype(dtype)
         if wire is None and plan.wire_dtypes:
             wire = plan.wire_dtypes
-        self.wire_dtypes = resolve_chain_wire(wire, len(links),
+        self.wire_dtypes = resolve_chain_wire(wire, len(self.links),
                                               self._storage)
         if microbatches is None:
             microbatches = int(os.environ.get("REPRO_CHAIN_MICROBATCH",
@@ -681,25 +383,13 @@ class ChainRuntime:
         self._jitter_rng = np.random.default_rng(jitter_seed)
         self._cm = profile.cum_mem()
         self._cf = profile.cum_flops()
-        if tier_faults is not None and len(tier_faults) != hw.num_tiers:
-            raise ValueError(
-                f"{hw.num_tiers} tiers need {hw.num_tiers} tier-fault "
-                f"models, got {len(tier_faults)}")
-        self.tier_faults = tier_faults
-        if breakers is None and tier_faults is not None:
-            breakers = tier_breakers([t.name for t in hw.tiers],
-                                     log=self.log)
-        if breakers is not None and len(breakers) != hw.num_tiers:
-            raise ValueError(
-                f"{hw.num_tiers} tiers need {hw.num_tiers} breakers, "
-                f"got {len(breakers)}")
-        self.breakers = breakers
+        self.tier_faults, self.breakers = tier_guards(hw, tier_faults,
+                                                      breakers, self.log)
         self.standby = bool(standby)
         # The failover / on-device rungs extend the LINK-failure ladder
-        # only when the tier-fault layer is active: an unprotected
-        # runtime keeps the legacy merge -> re-pick -> unrecoverable
-        # contract.
-        self._protected = tier_faults is not None or breakers is not None
+        # only when the tier-fault layer is active.
+        self._protected = self.tier_faults is not None \
+            or self.breakers is not None
         if self.standby and self._protected:
             # Prewarm the standby chains' Pareto fronts now (the one
             # place the full planner may run) so a breaker-open failover
@@ -727,21 +417,70 @@ class ChainRuntime:
             return cnn_lib.apply_cnn(self.layers, self.params, x,
                                      start=start, stop=stop, dtype=self.dtype)
 
-    def _stage_seconds(self, tier_id: int, start: int, stop: int) -> float:
-        """Whole-batch compute seconds for layers [start, stop) on a tier
-        (the same cost model the planner priced the chain with)."""
+    def _stage_seconds(self, tier_id: int, start: int, stop: int,
+                       size: int, M: int) -> float:
+        """Compute seconds of layers [start, stop) on a tier for one of M
+        microbatches of ``size`` samples (the same cost model the planner
+        priced the chain with; ``profile_batch`` says whether the profile
+        covers the whole batch or that many samples)."""
         tier = self.hw.tiers[tier_id]
         mem = float(self._cm[stop] - self._cm[start])
         fl = float(self._cf[stop] - self._cf[start])
-        return float(_tier_compute_time(tier, mem, fl, mem))
+        whole = float(_tier_compute_time(tier, mem, fl, mem))
+        if self.profile_batch is None:
+            return whole / M
+        return whole * (size / self.profile_batch)
 
-    # -- degradation helpers -------------------------------------------
-    def _merge_ok(self, tier_id: int, start: int, merged_stop: int) -> bool:
-        if self.merge_fallback is not None:
-            return self.merge_fallback
-        mem = float(self._cm[merged_stop] - self._cm[start])
-        return mem <= self.hw.tiers[tier_id].memory_budget
+    def _vet(self, route: _Route, s: int, start: int, t_start: float,
+             dt: float) -> tuple[float, _Failure | None]:
+        """Gate stage ``s`` of ``route`` (layers [start, its stop) from
+        ``t_start``, modelled at ``dt`` seconds) through its tier's
+        breaker and fault model.  Returns the seconds the stage takes (a
+        straggler stretches them) and None, or ``dt`` and the failure."""
+        tier_id, stop = route.tiers[s], route.edges[s + 1]
+        if self.breakers is not None \
+                and not self.breakers[tier_id].allow(t_start):
+            return dt, _Failure(t_start, None, s, tier_id, merge_at=None,
+                                repick=False, hop=None)
+        if self.tier_faults is None:
+            return dt, None
+        try:
+            actual = self.tier_faults[tier_id].execute(
+                t_start, dt,
+                mem_bytes=float(self._cm[stop] - self._cm[start]))
+        except TierError as fail:
+            t_fail = t_start + fail.elapsed_s
+            kind = ev.TIER_SHED if isinstance(fail, TierShed) \
+                else ev.TIER_CRASH
+            self.log.emit(kind, t_fail, tier=tier_id, stage=s,
+                          error=str(fail))
+            if self.breakers is not None:
+                self.breakers[tier_id].record_failure(t_fail)
+            persistent = isinstance(fail, TierCrash) \
+                and self.tier_faults[tier_id].in_crash_window(t_fail)
+            return dt, _Failure(t_fail, fail, s, tier_id,
+                                merge_at=s - 1 if s > 0 else None,
+                                repick=not persistent, hop=None)
+        if actual > dt:
+            self.log.emit(ev.TIER_SLOW, t_start, tier=tier_id, stage=s,
+                          modelled_s=dt, actual_s=actual)
+            dt = actual
+        if self.breakers is not None:
+            self.breakers[tier_id].record_success(t_start + dt)
+        return dt, None
 
+    def _count_hop(self, req: _Request, hop_id: int, raw_bytes: int,
+                   attempts: int, wire_bytes: int,
+                   goodput_bytes: int) -> None:
+        req.attempts += attempts
+        req.wire_bytes += wire_bytes
+        req.goodput_bytes += goodput_bytes
+        self.hop_attempts[hop_id] += attempts
+        self.hop_wire_bytes[hop_id] += wire_bytes
+        self.hop_goodput_bytes[hop_id] += goodput_bytes
+        self.hop_raw_bytes[hop_id] += raw_bytes
+
+    # -- the degradation ladder ----------------------------------------
     def _bandwidths(self) -> list[float]:
         return [est.bandwidth for est in self.estimators]
 
@@ -816,10 +555,6 @@ class ChainRuntime:
                       cuts=list(new.cuts))
         return new
 
-    def _device_fallback_ok(self) -> bool:
-        """May the whole model run on the device tier (ladder rung 5)?"""
-        return float(self._cm[-1]) <= self.hw.tiers[0].memory_budget
-
     def _maybe_proactive_failover(self) -> None:
         """An open breaker at request start triggers failover *before*
         dispatch -- the tier-side analogue of the EWMA-driven proactive
@@ -831,6 +566,84 @@ class ChainRuntime:
             if br.state == OPEN and t < br.opened_at + br.cooldown_s:
                 if self._failover(tier_id, t) is not None:
                     self.n_proactive += 1
+
+    def _merge_ok(self, tier_id: int, start: int, merged_stop: int) -> bool:
+        if self.merge_fallback is not None:
+            return self.merge_fallback
+        mem = float(self._cm[merged_stop] - self._cm[start])
+        return mem <= self.hw.tiers[tier_id].memory_budget
+
+    def _merge(self, route: _Route, req: _Request, f: _Failure) -> bool:
+        """Rung 2: fold the stage after ``f.merge_at`` onto that stage's
+        tier when the merged stage fits its memory budget.  The tier
+        recomputes the folded layers from the boundary it already holds
+        (the transfer was bit-exact)."""
+        p = f.merge_at
+        tier = route.tiers[p]
+        cut, merged_stop = route.edges[p + 1], route.edges[p + 2]
+        if not self._merge_ok(tier, route.edges[p], merged_stop):
+            return False
+        hop = route.fold(p)
+        extra = {} if f.hop is None else {"attempts": f.cause.attempts}
+        self.log.emit(ev.STAGE_MERGE, f.t, hop=hop, tier=tier, cut=cut,
+                      merged_stop=merged_stop, **extra)
+        self.n_merges += 1
+        self.hop_merges[hop] += 1
+        req.merged += (hop,)
+        return True
+
+    def _fall_back(self, req: _Request, f: _Failure) -> bool:
+        """Rung 5: run the whole model on the device tier, once a
+        request, when it fits the device's memory budget."""
+        fits = float(self._cm[-1]) <= self.hw.tiers[0].memory_budget
+        if req.fell_back or not fits:
+            return False
+        where = {"tier": f.tier, "stage": f.stage} if f.hop is None \
+            else {"hop": f.hop}
+        self.log.emit(ev.FALLBACK_DEVICE, f.t, **where)
+        self.n_fallback_device += 1
+        req.fell_back = True
+        return True
+
+    def _unrecoverable(self, req: _Request, f: _Failure):
+        """Rung 6: log the request's end and raise."""
+        tried = [list(c) for c in req.tried]
+        if f.hop is None:
+            self.log.emit(ev.UNRECOVERABLE, f.t, tier=f.tier, tried=tried)
+            msg = (f"tier {f.tier} failed; merge, re-pick, failover and "
+                   f"on-device fallback all unavailable")
+        else:
+            self.log.emit(ev.UNRECOVERABLE, f.t, tried=tried,
+                          merged=list(req.merged))
+            msg = (f"hop {f.hop} failed; stage merge infeasible and chain "
+                   f"Pareto front exhausted (tried {list(req.tried)})")
+        raise SplitUnrecoverable(msg) from f.cause
+
+    def _recover(self, route: _Route, req: _Request,
+                 f: _Failure) -> _Route | None:
+        """Walk the ladder after failure ``f``.  None when a merge folded
+        ``route`` in place: the microbatch goes on at stage
+        ``f.merge_at`` from the boundary it holds.  Otherwise the route
+        on which it restarts from tier 0."""
+        if f.merge_at is not None and self._merge(route, req, f):
+            return None
+        new = None
+        if f.repick:
+            req.tried += (tuple(self.plan.cuts),)
+            new = self._repick(exclude=req.tried, kind=ev.REPICK)
+            if new is not None:
+                self.plan = new
+                self.n_repicks += 1
+        if new is None and (f.hop is None or self._protected):
+            new = self._failover(f.tier, f.t)
+            if new is not None:
+                req.tried = ()
+            elif self._fall_back(req, f):
+                return _Route((0, len(self.layers)))
+        if new is None:
+            self._unrecoverable(req, f)
+        req.repicked = True
+        return _Route(new.edges)
 
     # -- the request loop ----------------------------------------------
     def infer(self, x, *, at: float | None = None) -> ChainInferenceResult:
@@ -857,15 +670,8 @@ class ChainRuntime:
         planned_cuts = self.plan.cuts
         L = len(self.layers)
         t0 = self.clock.now if at is None else float(at)
-        batch = int(x.shape[0])
-        slices = microbatch_slices(batch, self.microbatches)
+        slices = microbatch_slices(int(x.shape[0]), self.microbatches)
         M = len(slices)
-
-        # Active chain structure, keyed to ORIGINAL tier/hop ids so the
-        # resource model and counters survive merges.
-        edges = list(self.plan.edges)
-        tiers = list(range(len(edges) - 1))
-        hops = list(range(len(edges) - 2))
         if self.resources is None:           # per-request resource model
             tier_free = [t0] * self.hw.num_tiers
             link_free = [t0] * len(self.links)
@@ -873,264 +679,85 @@ class ChainRuntime:
             tier_free = self.resources.tier_free
             link_free = self.resources.link_free
 
-        attempts = 0
-        retries = 0
-        wire = goodput = 0
-        merged: tuple[int, ...] = ()
-        tried: tuple[tuple[int, ...], ...] = ()
-        repicked = False
-        fell_back = False
+        route = _Route(self.plan.edges)
+        req = _Request()
         outs = []
         mb_finish: list[float] = []
         finish = t0
-        for m in range(M):
-            x_m = x[slices[m][0]:slices[m][1]]
-            cur = x_m
-            layer = 0
-            s = 0
-            ready = t0
+        for lo, hi in slices:
+            x_m = x[lo:hi]
+            cur, layer, s, ready = x_m, 0, 0, t0
             while True:
-                tier_id = tiers[s]
-                stop = edges[s + 1]
+                tier_id, stop = route.tiers[s], route.edges[s + 1]
                 t_start = max(tier_free[tier_id], ready)
-                # Legacy: the profile describes the WHOLE batch, so each
-                # of the M microbatches costs 1/M of it.  A serving
-                # engine plans per sample (profile_batch=1) and then
-                # dispatches variable-size batches, so its microbatch
-                # cost scales with the slice's own sample count instead.
-                if self.profile_batch is None:
-                    dt = self._stage_seconds(tier_id, layer, stop) / M
-                else:
-                    size = slices[m][1] - slices[m][0]
-                    dt = self._stage_seconds(tier_id, layer, stop) \
-                        * (size / self.profile_batch)
-                # Breaker gate + tier-fault vetting before the stage runs.
-                tier_fail: TierError | None = None
-                rejected = False
-                if stop > layer and self.breakers is not None \
-                        and not self.breakers[tier_id].allow(t_start):
-                    rejected = True
-                    t_fail = t_start
-                elif stop > layer and self.tier_faults is not None:
-                    try:
-                        actual = self.tier_faults[tier_id].execute(
-                            t_start, dt,
-                            mem_bytes=float(self._cm[stop]
-                                            - self._cm[layer]))
-                        if actual > dt:
-                            self.log.emit(ev.TIER_SLOW, t_start,
-                                          tier=tier_id, stage=s,
-                                          modelled_s=dt, actual_s=actual)
-                            dt = actual
-                        if self.breakers is not None:
-                            self.breakers[tier_id].record_success(
-                                t_start + dt)
-                    except TierError as fail:
-                        tier_fail = fail
-                        t_fail = t_start + fail.elapsed_s
-                if rejected or tier_fail is not None:
-                    # Tier-failure ladder: upstream stage merge ->
-                    # cached-front re-pick (transient failures only) ->
-                    # standby failover -> on-device fallback -> give up.
-                    tier_free[tier_id] = t_fail
-                    ready = t_fail
-                    persistent = rejected
-                    if tier_fail is not None:
-                        kind = ev.TIER_SHED \
-                            if isinstance(tier_fail, TierShed) \
-                            else ev.TIER_CRASH
-                        self.log.emit(kind, t_fail, tier=tier_id,
-                                      stage=s, error=str(tier_fail))
-                        if self.breakers is not None:
-                            self.breakers[tier_id].record_failure(t_fail)
-                        persistent = isinstance(tier_fail, TierCrash) \
-                            and self.tier_faults[tier_id] \
-                            .in_crash_window(t_fail)
-                    if not rejected and s > 0 and \
-                            self._merge_ok(tiers[s - 1], edges[s - 1],
-                                           edges[s + 1]):
-                        # Fold the failed stage back onto the upstream
-                        # tier: it recomputes [layer, stop) from the
-                        # boundary it already holds (the transfer was
-                        # bit-exact), and the dead tier drops out of
-                        # the chain for the rest of the request.
-                        dead_hop = hops[s - 1]
-                        self.log.emit(ev.STAGE_MERGE, t_fail,
-                                      hop=dead_hop, tier=tiers[s - 1],
-                                      cut=edges[s],
-                                      merged_stop=edges[s + 1])
-                        self.n_merges += 1
-                        self.hop_merges[dead_hop] += 1
-                        merged = merged + (dead_hop,)
-                        del edges[s]
-                        del tiers[s]
-                        del hops[s - 1]
-                        s -= 1
-                        continue
-                    if not persistent:
-                        tried = tried + (tuple(self.plan.cuts),)
-                        new = self._repick(exclude=tried, kind=ev.REPICK)
-                        if new is not None:
-                            self.plan = new
-                            self.n_repicks += 1
-                            repicked = True
-                            edges = list(new.edges)
-                            tiers = list(range(len(edges) - 1))
-                            hops = list(range(len(edges) - 2))
-                            cur = x_m
-                            layer = 0
-                            s = 0
-                            ready = t_fail
-                            continue
-                    new = self._failover(tier_id, t_fail)
-                    if new is not None:
-                        repicked = True
-                        tried = ()
-                        edges = list(new.edges)
-                        tiers = list(range(len(edges) - 1))
-                        hops = list(range(len(edges) - 2))
-                        cur = x_m
-                        layer = 0
-                        s = 0
-                        ready = t_fail
-                        continue
-                    if not fell_back and self._device_fallback_ok():
-                        self.log.emit(ev.FALLBACK_DEVICE, t_fail,
-                                      tier=tier_id, stage=s)
-                        self.n_fallback_device += 1
-                        fell_back = True
-                        edges = [0, L]
-                        tiers = [0]
-                        hops = []
-                        cur = x_m
-                        layer = 0
-                        s = 0
-                        ready = t_fail
-                        continue
-                    self.log.emit(ev.UNRECOVERABLE, t_fail, tier=tier_id,
-                                  tried=[list(c) for c in tried])
-                    raise SplitUnrecoverable(
-                        f"tier {tier_id} failed; merge, re-pick, "
-                        f"failover and on-device fallback all "
-                        f"unavailable") from tier_fail
+                dt = self._stage_seconds(tier_id, layer, stop, hi - lo, M)
+                failed = None
                 if stop > layer:
-                    cur = self._run(cur, layer, stop)
-                tier_free[tier_id] = t_start + dt
-                ready = t_start + dt
-                layer = stop
-                if layer == L:
-                    break
-                hop_id = hops[s]
-                w = self.wire_dtypes[hop_id]
-                data, meta = encode_boundary(cur, w)
-                tx = max(link_free[hop_id], ready)
-                if w != self._storage:
-                    self.log.emit(ev.WIRE_ENCODE, tx,
-                                  what=f"hop{hop_id}@l={layer}", wire=w,
-                                  raw_bytes=meta.raw_bytes,
-                                  payload_bytes=len(data))
-                try:
-                    out = send_with_retry(
-                        self.links[hop_id], data, self.policy,
-                        rng=self._jitter_rng, log=self.log,
-                        what=f"hop{hop_id}@l={layer}", at=tx,
-                        framed=meta.framed)
-                    link_free[hop_id] = tx + out.elapsed_s
-                    ready = tx + out.elapsed_s
-                    attempts += out.attempts
-                    retries += out.attempts - 1
-                    wire += out.wire_bytes
-                    goodput += out.goodput_bytes
-                    self.hop_attempts[hop_id] += out.attempts
-                    self.hop_wire_bytes[hop_id] += out.wire_bytes
-                    self.hop_goodput_bytes[hop_id] += out.goodput_bytes
-                    self.hop_raw_bytes[hop_id] += meta.raw_bytes
-                    self.estimators[hop_id].observe(out.goodput_bytes,
-                                                    out.success_elapsed_s)
-                    cur = decode_boundary(out.payload, meta)
-                    s += 1
-                except TransferFailed as fail:
-                    t_fail = tx + fail.elapsed_s
-                    link_free[hop_id] = t_fail
-                    ready = t_fail
-                    attempts += fail.attempts
-                    retries += fail.attempts
-                    wire += fail.wire_bytes
-                    self.hop_attempts[hop_id] += fail.attempts
-                    self.hop_wire_bytes[hop_id] += fail.wire_bytes
-                    self.hop_raw_bytes[hop_id] += meta.raw_bytes
-                    self.estimators[hop_id].observe(0.0, fail.elapsed_s)
-                    if self._merge_ok(tier_id, edges[s], edges[s + 2]):
-                        self.log.emit(ev.STAGE_MERGE, t_fail,
-                                      hop=hop_id, tier=tier_id,
-                                      cut=edges[s + 1],
-                                      merged_stop=edges[s + 2],
-                                      attempts=fail.attempts)
-                        self.n_merges += 1
-                        self.hop_merges[hop_id] += 1
-                        merged = merged + (hop_id,)
-                        del edges[s + 1]
-                        del tiers[s + 1]
-                        del hops[s]
-                        # stay on stage s: the loop's next pass computes
-                        # the folded layers [layer, new stop) on this tier
+                    dt, failed = self._vet(route, s, layer, t_start, dt)
+                    if failed is None:
+                        cur = self._run(cur, layer, stop)
+                    else:
+                        tier_free[tier_id] = failed.t
+                if failed is None:
+                    tier_free[tier_id] = ready = t_start + dt
+                    layer = stop
+                    if layer == L:
+                        break
+                    hop_id = route.hops[s]
+                    w = self.wire_dtypes[hop_id]
+                    data, meta = encode_boundary(cur, w)
+                    tx = max(link_free[hop_id], ready)
+                    if w != self._storage:
+                        self.log.emit(ev.WIRE_ENCODE, tx,
+                                      what=f"hop{hop_id}@l={layer}", wire=w,
+                                      raw_bytes=meta.raw_bytes,
+                                      payload_bytes=len(data))
+                    try:
+                        out = send_with_retry(
+                            self.links[hop_id], data, self.policy,
+                            rng=self._jitter_rng, log=self.log,
+                            what=f"hop{hop_id}@l={layer}", at=tx,
+                            framed=meta.framed)
+                    except TransferFailed as fail:
+                        link_free[hop_id] = tx + fail.elapsed_s
+                        req.retries += fail.attempts
+                        self._count_hop(req, hop_id, meta.raw_bytes,
+                                        fail.attempts, fail.wire_bytes, 0)
+                        self.estimators[hop_id].observe(0.0, fail.elapsed_s)
+                        failed = _Failure(tx + fail.elapsed_s, fail, s,
+                                          route.tiers[s + 1], merge_at=s,
+                                          repick=True, hop=hop_id)
+                    else:
+                        link_free[hop_id] = ready = tx + out.elapsed_s
+                        req.retries += out.attempts - 1
+                        self._count_hop(req, hop_id, meta.raw_bytes,
+                                        out.attempts, out.wire_bytes,
+                                        out.goodput_bytes)
+                        self.estimators[hop_id].observe(
+                            out.goodput_bytes, out.success_elapsed_s)
+                        cur = decode_boundary(out.payload, meta)
+                        s += 1
                         continue
-                    tried = tried + (tuple(self.plan.cuts),)
-                    new = self._repick(exclude=tried, kind=ev.REPICK)
-                    if new is None and self._protected:
-                        # ladder rungs 4/5 (tier-fault deployments):
-                        # fail the dead hop's downstream tier over to
-                        # its standby, else run fully on the device
-                        new = self._failover(tiers[s + 1], t_fail)
-                        if new is not None:
-                            tried = ()
-                        elif not fell_back and self._device_fallback_ok():
-                            self.log.emit(ev.FALLBACK_DEVICE, t_fail,
-                                          hop=hop_id)
-                            self.n_fallback_device += 1
-                            fell_back = True
-                            edges = [0, L]
-                            tiers = [0]
-                            hops = []
-                            cur = x_m
-                            layer = 0
-                            s = 0
-                            ready = t_fail
-                            continue
-                    elif new is not None:
-                        self.plan = new
-                        self.n_repicks += 1
-                    if new is None:
-                        self.log.emit(ev.UNRECOVERABLE, t_fail,
-                                      tried=[list(c) for c in tried],
-                                      merged=list(merged))
-                        raise SplitUnrecoverable(
-                            f"hop {hop_id} failed; stage merge infeasible "
-                            f"and chain Pareto front exhausted "
-                            f"(tried {list(tried)})") from fail
-                    repicked = True
-                    # restart this microbatch from tier 0 on the new cuts
-                    edges = list(new.edges)
-                    tiers = list(range(len(edges) - 1))
-                    hops = list(range(len(edges) - 2))
-                    cur = x_m
-                    layer = 0
-                    s = 0
-                    ready = t_fail
+                ready = failed.t
+                new = self._recover(route, req, failed)
+                if new is None:          # merged: go on upstream
+                    s = failed.merge_at
+                else:                    # restart from tier 0
+                    route, cur, layer, s = new, x_m, 0, 0
             outs.append(cur)
             mb_finish.append(ready)
             finish = max(finish, ready)
         self.clock.advance_to(finish)
         logits = outs[0] if M == 1 else torch.cat(outs, dim=0)
-        degraded = bool(merged) or repicked or fell_back
-        if degraded or retries:
+        degraded = bool(req.merged) or req.repicked or req.fell_back
+        if degraded or req.retries:
             self.n_recovered += 1
         return ChainInferenceResult(
-            logits=logits, cuts=tuple(edges[1:-1]),
+            logits=logits, cuts=tuple(route.edges[1:-1]),
             planned_cuts=planned_cuts, degraded=degraded,
-            merged_hops=merged, attempts=attempts,
-            chain_elapsed_s=finish - t0, wire_bytes=wire,
-            goodput_bytes=goodput, microbatches=M,
+            merged_hops=req.merged, attempts=req.attempts,
+            chain_elapsed_s=finish - t0, wire_bytes=req.wire_bytes,
+            goodput_bytes=req.goodput_bytes, microbatches=M,
             events=tuple(self.log.since(mark)),
             microbatch_finish_s=tuple(mb_finish))
 
@@ -1152,19 +779,8 @@ class ChainRuntime:
                 [ft.counters() for ft in self.tier_faults],
             "breakers": None if self.breakers is None else
                 [br.counters() for br in self.breakers],
-            "hops": [{
-                "hop": k,
-                "wire_dtype": self.wire_dtypes[k],
-                "attempts": self.hop_attempts[k],
-                "wire_bytes": self.hop_wire_bytes[k],
-                "goodput_bytes": self.hop_goodput_bytes[k],
-                "raw_bytes": self.hop_raw_bytes[k],
-                "retransmitted_bytes": (self.hop_wire_bytes[k]
-                                        - self.hop_goodput_bytes[k]),
-                "merges": self.hop_merges[k],
-                "est_bandwidth": self.estimators[k].bandwidth,
-                "degradation": self.estimators[k].degradation(),
-                "link": self.links[k].counters(),
-            } for k in range(len(self.links))],
+            "hops": [hop_stats([self], k, self.wire_dtypes[k],
+                               self.estimators[k], self.links[k])
+                     for k in range(len(self.links))],
             "events": self.log.counts(),
         }

@@ -111,9 +111,7 @@ class FaultyTier:
     ``execute(t_start, compute_s, mem_bytes)`` returns the actual compute
     seconds (possibly stretched by a straggler fault) or raises
     ``TierCrash`` / ``TierShed``.  The tier never touches the clock --
-    the caller owns scheduling (resource free-times, ``advance_to``) --
-    so ``SplitRuntime`` can consult the same model without perturbing its
-    link-only time accounting."""
+    the caller owns scheduling (resource free-times, ``advance_to``)."""
 
     def __init__(self, name: str = "tier", *,
                  faults: TierFaultSpec = TierFaultSpec(), seed: int = 0,

@@ -48,7 +48,7 @@ instead of one synchronous call at a time:
 
 Numerics: in pipelined mode (the default) one request = one microbatch,
 so every request's logits are computed at its own batch size and are
-**bit-identical** to ``apply_split`` / a direct ``SplitRuntime`` run on
+**bit-identical** to ``apply_split`` / a direct ``ChainRuntime`` run on
 that request alone, whatever else is in flight around it.  The
 sequential baseline fuses each batch into one stage call (library convs
 and matmuls are not batch-size-invariant, so fused logits can differ in
@@ -72,14 +72,15 @@ from repro_torch.device import resolve_device
 from repro_torch.models import cnn as cnn_lib
 from repro_torch.models.profiles import cnn_profile
 from repro_torch.runtime import events as ev
-from repro_torch.runtime.breakers import CircuitBreaker, tier_breakers
+from repro_torch.runtime.breakers import CircuitBreaker
 from repro_torch.runtime.events import EventLog
-from repro_torch.runtime.faults import FaultyLink, VirtualClock
+from repro_torch.runtime.faults import FaultyLink
 from repro_torch.runtime.tier_faults import FaultyTier
 from repro_torch.runtime.link_estimator import chain_estimators
 from repro_torch.runtime.runtime import (ChainInferenceResult,
                                          ChainResources, ChainRuntime,
-                                         SplitUnrecoverable)
+                                         SplitUnrecoverable, hop_stats,
+                                         links_and_clock, tier_guards)
 from repro_torch.runtime.transfer import RetryPolicy
 from repro_torch.spans import span
 
@@ -233,20 +234,8 @@ class CnnServingEngine:
         self._wire = wire
         self._wire_key = resolve_chain_wire(wire, len(hw.links),
                                             self._storage)
-        if links is None:
-            clock = VirtualClock()
-            links = [FaultyLink(link.bandwidth, clock=clock)
-                     for link in hw.links]
-        else:
-            links = list(links)
-            clock = links[0]._clock if links else VirtualClock()
-        if len(links) != hw.num_tiers - 1:
-            raise ValueError(
-                f"{hw.num_tiers} tiers need {hw.num_tiers - 1} links, "
-                f"got {len(links)}")
-        self.links = links
-        self.clock = clock
-        self.resources = ChainResources(hw.num_tiers, len(links)) \
+        self.links, self.clock = links_and_clock(hw, links)
+        self.resources = ChainResources(hw.num_tiers, len(self.links)) \
             if self.pipelined else None
         self.estimators = chain_estimators(
             [link.bandwidth for link in hw.links], alpha=estimator_alpha)
@@ -254,23 +243,12 @@ class CnnServingEngine:
         self.estimator_alpha = estimator_alpha
         self.jitter_seed = int(jitter_seed)
         self.log = log if log is not None else EventLog()
-        if tier_faults is not None and len(tier_faults) != hw.num_tiers:
-            raise ValueError(
-                f"{hw.num_tiers} tiers need {hw.num_tiers} tier_faults, "
-                f"got {len(tier_faults)}")
-        if breakers is not None and len(breakers) != hw.num_tiers:
-            raise ValueError(
-                f"{hw.num_tiers} tiers need {hw.num_tiers} breakers, "
-                f"got {len(breakers)}")
         # One FaultyTier + one breaker per *physical* tier, shared across
         # every bucket runtime (built here so per-bucket ChainRuntimes
         # don't each auto-build their own disconnected set).
-        self.tier_faults = list(tier_faults) if tier_faults is not None \
-            else None
-        if breakers is None and tier_faults is not None:
-            breakers = tier_breakers([t.name for t in hw.tiers],
-                                     log=self.log)
-        self.breakers = list(breakers) if breakers is not None else None
+        self.tier_faults, self.breakers = tier_guards(
+            hw, None if tier_faults is None else list(tier_faults),
+            None if breakers is None else list(breakers), self.log)
         self.standby = bool(standby)
         self._buckets: dict[tuple, _Bucket] = {}
         self._seq_free = 0.0    # sequential mode: prior batch's makespan
@@ -466,22 +444,13 @@ class CnnServingEngine:
             if self.n_served else 0.0
         hops = []
         for k in range(len(self.links)):
-            wire_bytes = sum(rt.hop_wire_bytes[k] for rt in runtimes)
-            goodput = sum(rt.hop_goodput_bytes[k] for rt in runtimes)
-            hops.append({
-                "hop": k,
-                "wire_dtype": self._wire_key[k],
-                "attempts": sum(rt.hop_attempts[k] for rt in runtimes),
-                "wire_bytes": wire_bytes,
-                "goodput_bytes": goodput,
-                "raw_bytes": sum(rt.hop_raw_bytes[k] for rt in runtimes),
-                "retransmitted_bytes": wire_bytes - goodput,
-                "merges": sum(rt.hop_merges[k] for rt in runtimes),
-                "est_bandwidth": self.estimators[k].bandwidth,
-                "degradation": self.estimators[k].degradation(),
-                "goodput_Bps": goodput / span if span > 0 else 0.0,
-                "link": self.links[k].counters(),
-            })
+            hop = hop_stats(runtimes, k, self._wire_key[k],
+                            self.estimators[k], self.links[k])
+            link = hop.pop("link")           # last, as the JAX engine has it
+            hop["goodput_Bps"] = hop["goodput_bytes"] / span if span > 0 \
+                else 0.0
+            hop["link"] = link
+            hops.append(hop)
         lat = np.asarray(self._latencies) if self._latencies else \
             np.zeros(1)
         return {

@@ -1,5 +1,6 @@
 """The hybrid language model (``repro_torch.models.granite_hybrid``)
-against its plain reference (``repro_torch.reference.granite_hybrid``) on
+against its plain reference (``chipbench.reference.granite_hybrid``, the
+benchmark's) on
 seeded weights, on the CPU, at a granite-shaped size: d 64, two periods of
 (mamba, attention, mamba), 8 experts top-2 and a shared expert, vocab 256.
 
@@ -22,6 +23,7 @@ seeded weights, on the CPU, at a granite-shaped size: d 64, two periods of
 * ``layer_types`` decides each layer's mixer, in order.
 * The engine serves the model, and every registered decoder config
   exactly as it did before the engine took model objects."""
+import ast
 import dataclasses
 import json
 from pathlib import Path
@@ -31,6 +33,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from chipbench.reference import granite_hybrid as R  # noqa: E402
 from repro_torch.configs import all_configs  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -38,7 +41,6 @@ from repro_torch.kernels.ref import attention_plain, attention_scale  # noqa: E4
 from repro_torch.models import granite_hybrid as G  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.reference import granite_hybrid as R  # noqa: E402
 from repro_torch.serving.engine import Engine, TransformerLM  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -391,8 +393,18 @@ def test_the_published_configuration_is_the_benchmarks():
 
 
 def test_the_benchmarks_reference_is_the_repos():
-    assert (ROOT / "chipbench" / "reference" / "granite_hybrid.py") \
-        .read_text() == Path(R.__file__).read_text()
+    """The tests hold the model to the benchmark's reference, the one
+    copy in the repo, and it imports nothing but torch: the port under
+    test cannot bend it."""
+    assert Path(R.__file__).resolve() == \
+        (ROOT / "chipbench" / "reference" / "granite_hybrid.py").resolve()
+    assert not list((ROOT / "src" / "repro_torch").rglob("reference/*.py"))
+    tree = ast.parse(Path(R.__file__).read_text())
+    roots = {a.name.split(".")[0] for n in ast.walk(tree)
+             if isinstance(n, ast.Import) for a in n.names}
+    roots |= {n.module.split(".")[0] for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom)}
+    assert roots == {"__future__", "contextlib", "math", "torch"}
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ JAX package's, on the CPU.
   the JAX runtime's exactly (the clock prices the profile, not the
   tensors), and the logits agree to 1e-3 (2e-2 of scale under the bf16
   storage policy) -- over K, M, wire formats, both storage policies,
-  30% drops on three seeds, and the tier-fault crash-window ladder.
+  30% drops on three seeds at K=2 and K=3 (K=2 is the paper's two-tier
+  split), and the tier-fault crash-window ladder.
 * VGG16 at 224 px on the paper's two-tier chain with the int8 wire: the
   same cut and the same hop bytes as the JAX package's run.
 * ``serve.main`` runs the synchronous ``--cnn`` path on the CPU."""
@@ -143,8 +144,9 @@ def test_chain_runtime_matches_jax(tiny, K, M, wire, dtype):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_chain_runtime_drops_match_jax(tiny, seed, dtype):
-    pair = _run_pair(tiny, 3, 4, wire="int8", drop=0.3, seed=seed,
+@pytest.mark.parametrize("K", [2, 3])
+def test_chain_runtime_drops_match_jax(tiny, K, seed, dtype):
+    pair = _run_pair(tiny, K, 4, wire="int8", drop=0.3, seed=seed,
                      requests=3, dtype=dtype)
     assert pair[1][1].stats()["hops"][0]["link"]["dropped"] > 0
     _assert_same_run(pair, dtype)
@@ -162,30 +164,6 @@ def test_tier_fault_crash_window_ladder_matches_jax(tiny):
     kinds = [e.kind for e in rt.log.events]
     assert trt.events.TIER_CRASH in kinds
     assert trt.events.TIER_FAILOVER in kinds
-
-
-def test_split_runtime_matches_jax(tiny):
-    jp, tp, x = tiny
-    out = []
-    for rt_mod, core, prof, layers, params, xin in (
-            (jrt, jcore, jprofile, JTINY, jp, x),
-            (trt, tcore, tprofile, TINY, tp, torch.from_numpy(x))):
-        profile = prof("tiny", in_shape=TINY_SHAPE, layers=layers)
-        plan = core.smartsplit_exhaustive(profile, core.PAPER_ENV_J6)
-        link = rt_mod.FaultyLink(core.PAPER_ENV_J6.link.bandwidth, seed=1,
-                                 faults=rt_mod.FaultSpec(drop_rate=0.3))
-        rt = rt_mod.SplitRuntime(layers, params, plan, profile,
-                                 core.PAPER_ENV_J6, link=link, wire="int8")
-        out.append((rt, [rt.infer(xin) for _ in range(3)]))
-    (jr, jres), (tr, tres) = out
-    assert _events(tr.log) == _events(jr.log)
-    assert tr.stats()["hops"] == jr.stats()["hops"]
-    for a, b in zip(jres, tres):
-        assert (b.split_index, b.attempts, b.wire_bytes) == \
-            (a.split_index, a.attempts, a.wire_bytes)
-        want = np.asarray(a.logits)
-        assert np.max(np.abs(b.logits.numpy() - want)) <= \
-            LOGIT_TOL["fp32"] * max(1.0, float(np.max(np.abs(want))))
 
 
 def _numpy_init(layers, shape, seed=0):

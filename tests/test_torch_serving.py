@@ -32,8 +32,8 @@ from repro_torch import runtime as trt  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
 from repro_torch.models.profiles import cnn_profile  # noqa: E402
-from repro_torch.runtime import (FaultSpec, RetryPolicy,  # noqa: E402
-                                 SplitRuntime, events)
+from repro_torch.runtime import (ChainRuntime, FaultSpec,  # noqa: E402
+                                 RetryPolicy, events)
 from repro_torch.serving.cnn_engine import (CnnRequest,  # noqa: E402
                                             CnnServingEngine,
                                             QueueFullError)
@@ -90,8 +90,9 @@ def _ref(params, x1, dtype=None):
 # ---------------------------------------------------------------------------
 # The twelve tests of tests/test_cnn_engine.py, on the port
 # ---------------------------------------------------------------------------
-def test_single_request_bitwise_equals_split_runtime(tiny):
-    """One submitted request == a direct SplitRuntime run, bitwise."""
+def test_single_request_bitwise_equals_chain_runtime(tiny):
+    """One submitted request == a direct two-tier ChainRuntime run,
+    bitwise."""
     _, params, xs = tiny
     eng = _engine(params, tiers=2)
     req = eng.submit(xs[0])
@@ -99,9 +100,11 @@ def test_single_request_bitwise_equals_split_runtime(tiny):
     assert req.status == "served"
 
     prof = cnn_profile("tiny", in_shape=TINY_SHAPE, layers=TINY_LAYERS)
-    plan = tcore.smartsplit(prof, tcore.PAPER_ENV_J6)
-    srt = SplitRuntime(TINY_LAYERS, params, plan, prof, tcore.PAPER_ENV_J6)
-    direct = srt.infer(torch.from_numpy(xs[0])[None])
+    hw = tcore.paper_chain(2)
+    plan = tcore.smartsplit_chain(prof, hw)
+    crt = ChainRuntime(TINY_LAYERS, params, plan, prof, hw)
+    direct = crt.infer(torch.from_numpy(xs[0])[None])
+    assert direct.cuts == req.result.cuts
     assert torch.equal(req.logits, direct.logits[0])
     assert torch.equal(req.logits, _ref(params, xs[0]))
 
@@ -282,6 +285,29 @@ def test_stats_hops_schema_matches_chain_runtime(tiny):
     assert {"submitted", "queued", "served", "shed", "deadline_expired",
             "failed", "latency_p50_s", "latency_p99_s",
             "requests_per_s", "buckets", "hops", "events"} <= set(s)
+
+
+@pytest.mark.parametrize("bad", ["links", "tier_faults", "breakers"])
+def test_engine_and_runtime_refuse_the_same_chain(tiny, bad):
+    """A chain of 3 tiers handed 2 of something it needs 1 or 3 of: the
+    engine refuses it as its bucket runtimes would, word for word (both
+    check through one helper of the runtime module)."""
+    _, params, _ = tiny
+    hw = tcore.paper_chain(3)
+    two = {"links": lambda: _links(trt, tcore.paper_chain(2)),
+           "tier_faults": lambda: [trt.FaultyTier(t.name)
+                                   for t in hw.tiers[:2]],
+           "breakers": lambda: [trt.CircuitBreaker(t.name)
+                                for t in hw.tiers[:2]]}[bad]
+    prof = cnn_profile("tiny", in_shape=TINY_SHAPE, layers=TINY_LAYERS)
+    plan = tcore.smartsplit_chain(prof, hw)
+    with pytest.raises(ValueError) as by_runtime:
+        ChainRuntime(TINY_LAYERS, params, plan, prof, hw, **{bad: two()})
+    with pytest.raises(ValueError) as by_engine:
+        CnnServingEngine({"tiny": (TINY_LAYERS, params)}, hw=hw,
+                         device="cpu", **{bad: two()})
+    assert str(by_engine.value) == str(by_runtime.value)
+    assert "3 tiers need" in str(by_runtime.value)
 
 
 def test_submit_validation(tiny):

@@ -17,9 +17,8 @@ from repro_torch.core.costs import (INT8_FRAME_OVERHEAD_BYTES,  # noqa: E402
 from repro_torch.kernels import quant as kquant  # noqa: E402
 from repro_torch.kernels.quant import boundary_roundtrip  # noqa: E402
 from repro_torch.runtime import (FaultSpec, FaultyLink,  # noqa: E402
-                                 FrameError, SplitRuntime, TransferFailed,
-                                 events, pack_frames, send_with_retry,
-                                 unpack_frames)
+                                 FrameError, TransferFailed, events,
+                                 pack_frames, send_with_retry, unpack_frames)
 from repro_torch.runtime import wire as twire  # noqa: E402
 
 # (storage, wire, shape): the float wires either ship the storage bytes
@@ -146,9 +145,10 @@ def test_decode_round_trips(name):
 def test_raw_wire_path_is_legacy_bytes():
     _, tx = _pair("fp32", (1, 4, 5, 5))
     payload, _ = twire.encode_boundary(tx, "fp32")
-    data, like = SplitRuntime._serialize(tx)
+    data = twire.host_bytes(tx)
     assert payload == data == tx.numpy().tobytes()
-    assert torch.equal(SplitRuntime._deserialize(data, like), tx)
+    assert torch.equal(
+        twire.tensor_from_bytes(data, tx.dtype, tx.shape, tx.device), tx)
 
 
 def test_corrupted_frames_are_attributed():
